@@ -9,21 +9,33 @@ Phases, each printing JSON lines; any failure exits non-zero:
 
 1. build    compile the CUDA kernels from ``mdvit_tpu_torch/csrc`` (nvcc,
             sm_90a) and print build seconds and ptxas registers/smem/spills;
-2. kernels  each kernel against its plain PyTorch version at the four MDViT
-            stage shapes, B=16, fp32 and bf16, with the tolerances below; then
-            device times (CUDA events around a CUDA-graph replay) of the
-            kernel, the plain version and (CPE/CRPE) ``F.conv2d(groups=C)``
-            as a library yardstick, beside the bound, and the kernel's eager
-            time (host launch cost included);
-3. model    the serving entry (``predict.make_forward`` on the full-width
+2. kernels  each forward kernel against its plain PyTorch version at the four
+            MDViT stage shapes, B=16, fp32 and bf16, with the tolerances
+            below; then device times (CUDA events around a CUDA-graph replay)
+            of the kernel, the plain version and (CPE/CRPE)
+            ``F.conv2d(groups=C)`` as a library yardstick, beside the bound,
+            and the kernel's eager time (host launch cost included);
+3. backward each backward kernel against its plain backward at the same
+            shapes and types, two calls bit-equal, and the same times; the
+            library yardstick of CPE/CRPE is cuDNN's backward of their
+            ``F.conv2d(groups=C)`` forms (``aten.convolution_backward``);
+4. model    the serving entry (``predict.make_forward`` on the full-width
             MDViT at 256², random weights from ``--seed``, 4 domains, mixed
             one-hots) with every launch counter read around one B=16 call;
             the logits through the kernels against the same forward through
             the plain versions; then img/s and latency at B=1 and B=16 in
             fp32 and bf16, and a ``torch.profiler`` window of the same calls
             for device-busy time, idle share and device ops per forward;
-4. the ``kernels`` line, the card's name and power limit, and last the
-   ``{"ok": true, "device": ...}`` line.
+5. train    the 4-domain MKD train step (``train.steps.make_train_step``) on
+            the same model, D=4 × B=4 at 256², synthetic uint8 stores from
+            ``--seed``: every launch counter read around one step; every
+            gradient against the same step through the plain versions
+            (and that gap again without dropout, and with the heads scaled
+            out of sigmoid saturation); finite fp32 and bf16 losses; the fp32 loss falling over 10
+            steps on one batch; img/s, step ms, device-busy ms, idle share,
+            device ops per step and peak memory in fp32 and bf16;
+6. the ``kernels`` line, the card's name and power limit, and last the
+   ``{"ok": true, "device": ...}`` line. Each phase prints its seconds.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -47,6 +59,8 @@ from mdvit_tpu_torch.models.registry import build_mdvit
 from mdvit_tpu_torch.ops import dwconv, kernels
 from mdvit_tpu_torch.ops import factorized_attention as fa
 from mdvit_tpu_torch.predict import make_forward
+from mdvit_tpu_torch.train.optim import build_optimizer
+from mdvit_tpu_torch.train.steps import make_train_step
 
 # peak rates of one H100 SXM (NVIDIA data sheet; 700 W): memory bytes/s and
 # fp32 FLOP/s outside the tensor cores (all three kernels compute in fp32)
@@ -70,21 +84,57 @@ TOL = {torch.float32: {"abs": 1e-4, "rel": 1e-5},
 # each kernel's last-bit differences forward
 MODEL_REL_TOL = 1e-4
 
-# The kernels line gives each kernel's times for one B=16 fp32 forward:
-# 2 encoder and 2 decoder blocks run at each stage shape.
-CALLS_PER_SHAPE = 4
+# Backward kernel vs plain backward, relative to the output's largest value:
+# image-shaped gradients as TOL; dw, db are fp32 sums over B·H·W (up to
+# 65,536 terms) in another order in both dtypes (the bf16 inputs are exact
+# in fp32), so their last bits move more.
+BWD_WEIGHT_REL_TOL = 1e-4
+
+# The kernels line gives each kernel's times for one fp32 train step at
+# D·B = 16, 256²: 2 encoder and 2 decoder blocks run at each stage shape, so
+# each forward kernel runs 4 times per shape; each backward kernel 4 times
+# per shape in the first pull and, in the second (domain_layer) pull, at
+# every block but the first encoder block, whose kernels lie before the
+# first domain gate: 3 times at stage 0.
+FWD_CALLS = (4, 4, 4, 4)
+BWD_CALLS = (7, 8, 8, 8)
+FORWARD = ("factorized_attention", "cpe_conv", "crpe_conv")
+BACKWARD = ("factorized_attention_bwd", "cpe_conv_bwd", "crpe_conv_bwd")
 REPLACES = {
     "factorized_attention": "mdvit_tpu/ops/pallas_attention.py:144",
     "cpe_conv": "mdvit_tpu/ops/pallas_dwconv.py:194",
     "crpe_conv": "mdvit_tpu/ops/pallas_dwconv.py:251",
+    "factorized_attention_bwd": "mdvit_tpu/ops/pallas_attention.py:175",
+    "cpe_conv_bwd": "mdvit_tpu/ops/pallas_dwconv.py:216",
+    "crpe_conv_bwd": "mdvit_tpu/ops/pallas_dwconv.py:274",
 }
-SOURCE = {
-    "factorized_attention": "mdvit_tpu_torch/csrc/factorized_attention.cu",
-    "cpe_conv": "mdvit_tpu_torch/csrc/dwconv.cu",
-    "crpe_conv": "mdvit_tpu_torch/csrc/dwconv.cu",
-}
+SOURCE = {name: "mdvit_tpu_torch/csrc/" + (
+    "factorized_attention.cu" if name.startswith("factorized") else "dwconv.cu")
+    for name in REPLACES}
 # device-kernel names of the port's own kernels, for the profiler's share
-PORT_KERNEL_NAMES = ("factorized_attention_fwd_kernel", "dwconv_fwd_kernel")
+PORT_KERNEL_NAMES = ("factorized_attention_fwd_kernel", "factorized_attention_bwd_kernel",
+                     "dwconv_fwd_kernel", "dwconv_weight_partial_kernel",
+                     "dwconv_weight_reduce_kernel")
+
+# the train step: D domains × B per domain, N images per domain store
+TRAIN_D, TRAIN_B, TRAIN_N = 4, 4, 8
+# gradients through the kernels vs through the plain versions, per parameter:
+# relative to the tensor's largest |grad|, with a floor at that share of the
+# model's largest |grad| for leaves whose true gradient is zero (a conv bias
+# ahead of a BatchNorm holds only cancellation noise). The fp32 step chains
+# 16 blocks of kernels with last-bit differences through two backward pulls.
+GRAD_REL_TOL = 1e-3
+GRAD_FLOOR_REL = 1e-5
+# the same step with the forwards plain too: forward activations then differ
+# in their last bits (the logits by ~3e-6 of their scale), and a few tensors'
+# gradients by up to a few percent, more or fewer with each set of dropout
+# masks; so the step is held as a whole, by the relative L2 norm over all
+# gradients. On an H100 it read 5e-6 to 9.5e-4 over the mask sets tried; the
+# limit is about four times the largest
+GRAD_L2_TOL = 4e-3
+# the heads' weights and biases times this make the first step's logits O(1)
+# (the random-init logits reach tens, where the sigmoid saturates)
+UNSATURATED_HEAD_SCALE = 1e-2
 
 
 def emit(obj) -> None:
@@ -183,14 +233,31 @@ def _inputs(kind: str, h: int, w: int, c: int, dtype, gen) -> dict:
             "w": randn(7, 7, c, std=(2 / 49) ** 0.5), "b": randn(c, std=0.1)}
 
 
+def _summary(names) -> dict:
+    return {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                   "library_ms": None, "bound_by": set()} for name in names}
+
+
+def _add(s: dict, rec: dict, calls: int) -> None:
+    """Fold one shape's record into a kernel's per-train-step totals (the
+    fp32 times, ``calls`` calls at this shape); errors over both dtypes."""
+    s["max_abs_err"] = max(s["max_abs_err"], rec["max_abs_err"])
+    if rec["dtype"] != "float32":
+        return
+    s["ms"] += calls * rec["ms"]
+    s["plain_ms"] += calls * rec["plain_ms"]
+    s["bound_ms"] += calls * rec["bound_ms"]
+    s["bound_by"].add(rec["bound_by"])
+    if rec["library_ms"] is not None:
+        s["library_ms"] = (s["library_ms"] or 0.0) + calls * rec["library_ms"]
+
+
 def phase_kernels(seed: int) -> dict:
     gen = torch.Generator().manual_seed(seed)
-    summary = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                      "bound_ms": 0.0, "library_ms": None, "bound_by": set()}
-               for name in REPLACES}
+    summary = _summary(FORWARD)
     failures = []
-    for kind in REPLACES:
-        for h, w, c, ch in STAGES:
+    for kind in FORWARD:
+        for stage, (h, w, c, ch) in enumerate(STAGES):
             for dtype in (torch.float32, torch.bfloat16):
                 t = _inputs(kind, h, w, c, dtype, gen)
                 item = 2 if dtype == torch.bfloat16 else 4
@@ -236,16 +303,7 @@ def phase_kernels(seed: int) -> dict:
                 emit(rec)
                 if not res["ok"]:
                     failures.append(rec)
-                s = summary[kind]
-                s["max_abs_err"] = max(s["max_abs_err"], res["max_abs_err"])
-                if dtype == torch.float32:  # a forward calls each shape 4 times
-                    s["ms"] += CALLS_PER_SHAPE * ms
-                    s["plain_ms"] += CALLS_PER_SHAPE * plain_ms
-                    s["bound_ms"] += CALLS_PER_SHAPE * b_ms
-                    s["bound_by"].add(b_by)
-                    if library_ms is not None:
-                        s["library_ms"] = ((s["library_ms"] or 0.0)
-                                           + CALLS_PER_SHAPE * library_ms)
+                _add(summary[kind], rec, FWD_CALLS[stage])
                 del t, got
     if failures:
         raise RuntimeError(f"{len(failures)} kernel check(s) out of tolerance")
@@ -255,12 +313,118 @@ def phase_kernels(seed: int) -> dict:
 # ----------------------------------------------------------------- phase 3
 
 
+def _compare_grads(got, want, dtype, n_image: int) -> dict:
+    """Image-shaped gradients (the first ``n_image``) as ``compare``; dw, db
+    (fp32 in both dtypes) relative to their largest value."""
+    res = {"max_abs_err": 0.0, "max_rel_err": 0.0, "weight_rel_err": 0.0, "ok": True}
+    for i, (a, e) in enumerate(zip(got, want)):
+        if i < n_image:
+            r = compare(a, e, dtype)
+            res["max_rel_err"] = max(res["max_rel_err"], r["max_rel_err"])
+            res["ok"] &= r["ok"]
+            res["max_abs_err"] = max(res["max_abs_err"], r["max_abs_err"])
+        else:
+            err = (a.float() - e.float()).abs().max().item()
+            rel = err / max(e.float().abs().max().item(), 1e-30)
+            res["weight_rel_err"] = max(res["weight_rel_err"], rel)
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            res["ok"] &= rel <= BWD_WEIGHT_REL_TOL and bool(torch.isfinite(a).all())
+    return res
+
+
+def phase_backward(seed: int) -> dict:
+    """A′, B′, C′ through their wrappers against the plain backwards, at the
+    main path's shapes: q, k, v (and CRPE's q, v) as slices of one
+    projection, the output gradient contiguous."""
+    gen = torch.Generator().manual_seed(seed + 7)
+    summary = _summary(BACKWARD)
+    failures = []
+    for kind in BACKWARD:
+        for stage, (h, w, c, ch) in enumerate(STAGES):
+            for dtype in (torch.float32, torch.bfloat16):
+                t = _inputs(kind[:-4], h, w, c, dtype, gen)
+                item = 2 if dtype == torch.bfloat16 else 4
+                n_el = BATCH * h * w * c
+                lib_fn = None
+                if kind == "factorized_attention_bwd":
+                    scale = ch ** -0.5
+                    g = torch.randn(BATCH, h * w, c, generator=gen).to("cuda", dtype)
+                    args = (t["q"], t["k"], t["v"], g, ch, scale)
+                    run = lambda: fa._backward(*args)
+                    plain = lambda: fa.factorized_attention_bwd_ref(*args)
+                    n_image, n_bytes, flops = 3, 7 * n_el * item, 10 * n_el * ch
+                else:
+                    g = torch.randn(BATCH, h, w, c, generator=gen).to("cuda", dtype)
+                    k = 3 if kind == "cpe_conv_bwd" else 7
+                    w_oihw = t["w"].permute(2, 0, 1).unsqueeze(1).contiguous()
+                    g_nchw = g.permute(0, 3, 1, 2)
+                    if kind == "cpe_conv_bwd":
+                        args = (t["x"], t["w"], g)
+                        run = lambda: dwconv._cpe_backward(*args)
+                        plain = lambda: dwconv.cpe_conv_bwd_ref(*args)
+                        n_image = 1
+                        n_bytes = 3 * n_el * item + 9 * c * item + 10 * c * 4
+                        flops = 4 * 9 * n_el + 2 * n_el
+                        img = t["x"]
+                    else:
+                        args = (t["q"], t["v"], t["w"], t["b"], g)
+                        run = lambda: dwconv._crpe_backward(*args)
+                        plain = lambda: dwconv.crpe_conv_bwd_ref(*args)
+                        n_image = 2
+                        n_bytes = 5 * n_el * item + 50 * c * item + 50 * c * 4
+                        flops = 6 * 49 * n_el + 4 * n_el
+                        img = t["v"]
+                    img_nchw = img.permute(0, 3, 1, 2)
+                    pad = [k // 2] * 2
+                    lib_fn = lambda: torch.ops.aten.convolution_backward(
+                        g_nchw, img_nchw, w_oihw, [c], [1, 1], pad, [1, 1], False,
+                        [0, 0], c, [True, True, True])
+                got = run()
+                again = run()
+                torch.cuda.synchronize()
+                res = _compare_grads(got, plain(), dtype, n_image)
+                res["bit_equal_repeat"] = all(torch.equal(a, b) for a, b in zip(got, again))
+                res["ok"] &= res["bit_equal_repeat"]
+                with torch.no_grad():
+                    ms = device_ms(run)
+                    ms_eager = eager_ms(run)
+                    plain_ms = device_ms(plain)
+                    library_ms = device_ms(lib_fn) if lib_fn else None
+                b_ms, b_by = bound_ms(n_bytes, flops)
+                rec = {"phase": "kernel", "kernel": kind, "B": BATCH, "H": h, "W": w,
+                       "C": c, "ch": ch if kind.startswith("factorized") else None,
+                       "dtype": str(dtype).replace("torch.", ""), **res, "ms": ms,
+                       "eager_ms": ms_eager, "plain_ms": plain_ms,
+                       "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+                       "bytes": n_bytes, "flops": flops, "roofline_share": b_ms / ms}
+                emit(rec)
+                if not res["ok"]:
+                    failures.append(rec)
+                _add(summary[kind], rec, BWD_CALLS[stage])
+                del t, got, again, lib_fn
+    if failures:
+        raise RuntimeError(f"{len(failures)} backward kernel check(s) failed")
+    return summary
+
+
+# ----------------------------------------------------------------- phase 4
+
+
 @contextlib.contextmanager
-def plain_versions():
-    """Route the model's kernel calls to their plain PyTorch versions."""
-    with mock.patch.object(fa, "factorized_attention", fa.factorized_attention_ref), \
-            mock.patch.object(dwconv, "cpe_conv", dwconv.cpe_conv_ref), \
-            mock.patch.object(dwconv, "crpe_conv", dwconv.crpe_conv_ref):
+def plain_versions(forward: bool = True):
+    """Route the model's kernel calls to their plain PyTorch versions: the
+    backwards always, the forwards too unless ``forward`` is False. The
+    autograd Functions around them stay the same."""
+    patches = [(fa, "_backward", fa.factorized_attention_bwd_ref),
+               (dwconv, "_cpe_backward", dwconv.cpe_conv_bwd_ref),
+               (dwconv, "_crpe_backward", dwconv.crpe_conv_bwd_ref)]
+    if forward:
+        patches += [(fa, "_forward", fa.factorized_attention_ref),
+                    (dwconv, "_cpe_forward", dwconv.cpe_conv_ref),
+                    (dwconv, "_crpe_forward", dwconv.crpe_conv_ref)]
+    with contextlib.ExitStack() as stack:
+        for module, name, fn in patches:
+            stack.enter_context(mock.patch.object(module, name, fn))
         yield
 
 
@@ -272,33 +436,38 @@ def _requests(batch: int, seed: int):
     return images.cuda(), onehot.cuda()
 
 
-def _time_forward(forward, images, onehot, iters: int) -> dict:
+def _time_calls(fn, batch: int, iters: int) -> dict:
+    """Host clock around each ``fn()`` ended by a synchronize, after 3 warm-up
+    calls; ``batch`` images per call."""
     for _ in range(3):
-        forward(images, onehot)
+        fn()
     torch.cuda.synchronize()
     lat = []
     for _ in range(iters):
         t0 = time.perf_counter()
-        forward(images, onehot)
+        fn()
         torch.cuda.synchronize()
         lat.append(time.perf_counter() - t0)
     lat.sort()
     mean = sum(lat) / len(lat)
     p50 = lat[len(lat) // 2]
     return {"latency_ms_mean": mean * 1e3, "latency_ms_p50": p50 * 1e3,
-            "latency_ms_min": lat[0] * 1e3, "img_per_s": images.shape[0] / mean,
-            "img_per_s_p50": images.shape[0] / p50, "iters": iters}
+            "latency_ms_min": lat[0] * 1e3, "img_per_s": batch / mean,
+            "img_per_s_p50": batch / p50, "iters": iters}
 
 
-def _profile_forward(forward, images, onehot, reps: int = 5) -> dict:
+def _profile_calls(fn, reps: int = 5) -> dict:
     """Device work of ``reps`` calls under ``torch.profiler``: busy time (the
     union of device-op intervals) per call, device ops (kernels, copies,
-    memsets) per call, the port kernels' share of device time, top kernels."""
+    memsets) per call, the port kernels' share of device time, top ops."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            forward(images, onehot)
+            fn()
         torch.cuda.synchronize()
-    ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # device ops only: record_function ranges (the optimizer's step) appear
+    # on the device timeline as user annotations spanning other ops
+    ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
     if not ops:
         raise RuntimeError("the profiler recorded no device work")
     spans = sorted((e.time_range.start, e.time_range.end) for e in ops)
@@ -317,9 +486,9 @@ def _profile_forward(forward, images, onehot, reps: int = 5) -> dict:
     total = sum(by_name.values())
     ours = sum(t for n, t in by_name.items() if any(k in n for k in PORT_KERNEL_NAMES))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"device_busy_ms": busy / reps / 1e3, "device_ops_per_forward": len(ops) / reps,
+    return {"device_busy_ms": busy / reps / 1e3, "device_ops_per_call": len(ops) / reps,
             "port_kernels_share": ours / total,
-            "top": [{"name": n[:80], "ms_per_forward": t / reps / 1e3} for n, t in top]}
+            "top": [{"name": n[:80], "ms_per_call": t / reps / 1e3} for n, t in top]}
 
 
 def phase_model(seed: int) -> dict:
@@ -334,9 +503,10 @@ def phase_model(seed: int) -> dict:
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     emit({"phase": "model", "B": BATCH, "img": IMG, "launches": launches})
-    expected = 16  # 8 encoder + 8 decoder serial blocks, one call each
-    if any(launches[name] != expected for name in launches):
-        raise RuntimeError(f"launch counts {launches}, want {expected} each")
+    # 8 encoder + 8 decoder serial blocks, one call each; no backward
+    expected = {name: 16 if name in FORWARD else 0 for name in launches}
+    if launches != expected:
+        raise RuntimeError(f"launch counts {launches}, want {expected}")
     if (tuple(probs.shape) != (BATCH, IMG, IMG) or not bool(torch.isfinite(probs).all())
             or probs.min().item() < 0 or probs.max().item() > 1):
         raise RuntimeError(f"bad probabilities, shape {tuple(probs.shape)}")
@@ -384,12 +554,180 @@ def phase_model(seed: int) -> dict:
         for batch in (1, BATCH):
             images_b, onehot_b = _requests(batch, seed)
             torch.cuda.reset_peak_memory_stats()
-            t = _time_forward(fwd, images_b, onehot_b, iters=50 if batch == 1 else 30)
+            call = lambda: fwd(images_b, onehot_b)
+            t = _time_calls(call, batch, iters=50 if batch == 1 else 30)
             peak = torch.cuda.max_memory_allocated()
-            p = _profile_forward(fwd, images_b, onehot_b)
+            p = _profile_calls(call)
             emit({"phase": "serving", "dtype": name, "B": batch, "img": IMG, **t,
                   "peak_mem_bytes": peak, **p,
                   "idle_share": 1 - p["device_busy_ms"] / t["latency_ms_mean"]})
+    return launches
+
+
+# ----------------------------------------------------------------- phase 5
+
+
+def _stores(seed: int):
+    """Per-domain uint8 stores on the card, ``TRAIN_N`` each: a disc mask per
+    image, and the image brighter inside its disc than around it."""
+    gen = torch.Generator().manual_seed(seed + 2)
+    yy, xx = torch.meshgrid(torch.arange(IMG), torch.arange(IMG), indexing="ij")
+    images, masks = [], []
+    for _ in range(TRAIN_D):
+        cy, cx = torch.randint(64, 192, (2, TRAIN_N, 1, 1), generator=gen)
+        r = torch.randint(24, 64, (TRAIN_N, 1, 1), generator=gen)
+        m = (yy - cy) ** 2 + (xx - cx) ** 2 < r ** 2
+        noise = torch.randint(0, 160, (TRAIN_N, IMG, IMG, 3), generator=gen)
+        images.append((noise + 90 * m[..., None]).clamp(0, 255).to(torch.uint8).cuda())
+        masks.append(m.to(torch.uint8).cuda())
+    return images, masks
+
+
+def _train_setup(dtype, seed: int, drop: float = 0.1, head_scale: float = 1.0):
+    """The full-width MDViT (dropout and stochastic depth ``drop``, 0.1 as the
+    reference trains it; the heads' parameters times ``head_scale``) with
+    AdamW + StepLR and its MKD train step."""
+    model = build_mdvit(img_size=IMG, num_domains=TRAIN_D, dtype=dtype, device="cuda",
+                        seed=seed, drop_rate=drop, drop_path_rate=drop)
+    if head_scale != 1.0:
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.startswith("finalconv.") or ".linear_out." in name:
+                    p.mul_(head_scale)
+    optimizer, scheduler = build_optimizer(model, steps_per_epoch=TRAIN_N // TRAIN_B)
+    return model, make_train_step(model, optimizer, scheduler, TRAIN_D, seed=seed)
+
+
+def _grad_check(model, plain_model) -> dict:
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    plain = {n: p.grad for n, p in plain_model.named_parameters()}
+    top = max(g.abs().max().item() for g in plain.values())
+    worst, worst_name, n_bad = 0.0, None, 0
+    for name, want in plain.items():
+        err = (grads[name] - want).abs().max().item()
+        limit = GRAD_REL_TOL * max(want.abs().max().item(), GRAD_FLOOR_REL * top)
+        ratio = err / limit
+        n_bad += int(not ratio <= 1.0)
+        if not ratio <= worst:
+            worst, worst_name = ratio, name
+    return {"n_params": len(plain), "largest_grad": top, "worst_err_over_limit": worst,
+            "worst_param": worst_name, "n_out_of_tolerance": n_bad,
+            "tol_rel": GRAD_REL_TOL, "floor_rel": GRAD_FLOOR_REL,
+            "grad_l2_rel_err": _grad_l2_rel(model, plain_model)}
+
+
+def _grad_l2_rel(model, plain_model) -> float:
+    """‖grads − plain grads‖ / ‖plain grads‖ over all parameters."""
+    num = sum(((p.grad - q.grad) ** 2).sum().item()
+              for p, q in zip(model.parameters(), plain_model.parameters()))
+    den = sum((q.grad ** 2).sum().item() for q in plain_model.parameters())
+    return (num / den) ** 0.5
+
+
+def _all_plain_gap(seed: int, batch, drop: float, head_scale: float) -> dict:
+    """One fp32 step through the kernels and one through all plain versions,
+    from the same weights: the gradient gap and the first step's loss."""
+    models, losses = [], []
+    for plain in (False, True):
+        model, step = _train_setup(torch.float32, seed, drop, head_scale)
+        with plain_versions() if plain else contextlib.nullcontext():
+            losses.append(step(*batch)["loss"].item())
+        models.append(model)
+    check = _grad_check(*models)
+    return {"drop": drop, "head_scale": head_scale, "loss": losses[1],
+            **{k: check[k] for k in ("grad_l2_rel_err", "worst_err_over_limit",
+                                     "worst_param", "n_out_of_tolerance")}}
+
+
+def phase_train(seed: int) -> dict:
+    images, masks = _stores(seed)
+    indices = torch.arange(TRAIN_B).repeat(TRAIN_D, 1).cuda()  # one fixed batch
+    batch = TRAIN_D * TRAIN_B
+    model, step = _train_setup(torch.float32, seed)
+
+    # the main path: one train step, every launch counter read around it
+    kernels.reset_launches()
+    metrics = step(images, masks, indices)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    expected = {name: sum(FWD_CALLS) if name in FORWARD else sum(BWD_CALLS)
+                for name in launches}
+    emit({"phase": "train", "D": TRAIN_D, "B": TRAIN_B, "img": IMG,
+          "launches": launches, "expected": expected,
+          "metrics": {k: v.tolist() for k, v in metrics.items()}})
+    if launches != expected:
+        raise RuntimeError(f"train-step launch counts {launches}, want {expected}")
+
+    # every gradient against the same step through the plain backwards, the
+    # forward kernels kept: both backwards then see bit-equal activations
+    plain_model, plain_step = _train_setup(torch.float32, seed)
+    with plain_versions(forward=False):
+        kernels.reset_launches()
+        plain_step(images, masks, indices)
+        torch.cuda.synchronize()
+        plain_launches = dict(kernels.LAUNCHES)
+    check = _grad_check(model, plain_model)
+    emit({"phase": "train_vs_plain_backward", **check, "launches": plain_launches})
+    want = {name: sum(FWD_CALLS) if name in FORWARD else 0 for name in plain_launches}
+    if plain_launches != want:
+        raise RuntimeError(f"plain-backward step launches {plain_launches}, want {want}")
+    if check["n_out_of_tolerance"]:
+        raise RuntimeError(f"backward kernels' gradients differ from plain: {check}")
+
+    # and against the step with everything plain: the forwards then differ in
+    # their last bits, so the gradients agree as a whole (relative L2 norm),
+    # not element-wise
+    del plain_model, plain_step
+    all_model, all_step = _train_setup(torch.float32, seed)
+    with plain_versions():
+        kernels.reset_launches()
+        plain_metrics = all_step(images, masks, indices)
+        torch.cuda.synchronize()
+        all_launches = dict(kernels.LAUNCHES)
+    whole = _grad_check(model, all_model)
+    loss_rel = {k: ((metrics[k] - plain_metrics[k]).abs().max()
+                    / plain_metrics[k].abs().max().clamp(min=1e-30)).item()
+                for k in ("loss", "aux_loss", "kt_loss")}
+    emit({"phase": "train_vs_plain", **whole, "grad_l2_tol": GRAD_L2_TOL,
+          "loss_rel_err": loss_rel, "launches": all_launches})
+    if any(all_launches.values()):
+        raise RuntimeError(f"plain train step launched kernels: {all_launches}")
+    if whole["grad_l2_rel_err"] > GRAD_L2_TOL or max(loss_rel.values()) > MODEL_REL_TOL:
+        raise RuntimeError(f"train step differs from plain: {whole}, {loss_rel}")
+    del all_model, all_step
+    # where that gap comes from: the same pair of steps without dropout, and
+    # without dropout with the logits out of sigmoid saturation; readings only
+    emit({"phase": "train_vs_plain_cause", "gaps": [
+        _all_plain_gap(seed, (images, masks, indices), 0.0, 1.0),
+        _all_plain_gap(seed, (images, masks, indices), 0.0, UNSATURATED_HEAD_SCALE)]})
+
+    # the loss falls over 10 more AdamW steps on the same batch
+    losses = [metrics["loss"].item()]
+    for _ in range(10):
+        losses.append(step(images, masks, indices)["loss"].item())
+    model16, step16 = _train_setup(torch.bfloat16, seed)
+    m16 = step16(images, masks, indices)
+    finite = {k: bool(torch.isfinite(v).all()) for k, v in (
+        *(("fp32_" + k, metrics[k]) for k in ("loss", "aux_loss", "kt_loss")),
+        *(("bf16_" + k, m16[k]) for k in ("loss", "aux_loss", "kt_loss")))}
+    emit({"phase": "train_loss", "fp32_losses": losses,
+          "bf16_first": {k: m16[k].item() for k in ("loss", "aux_loss", "kt_loss")},
+          "finite": finite})
+    if not all(finite.values()) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"train losses not finite or not falling: {losses}, {finite}")
+
+    for name, train_step in (("float32", step), ("bfloat16", step16)):
+        call = lambda: train_step(images, masks, indices)
+        torch.cuda.reset_peak_memory_stats()
+        t = _time_calls(call, batch, iters=10)
+        peak = torch.cuda.max_memory_allocated()
+        p = _profile_calls(call, reps=3)
+        emit({"phase": "train_speed", "dtype": name, "D": TRAIN_D, "B": TRAIN_B,
+              "img": IMG, "step_ms_mean": t["latency_ms_mean"],
+              "step_ms_p50": t["latency_ms_p50"], "img_per_s": t["img_per_s"],
+              "img_per_s_p50": t["img_per_s_p50"], "iters": t["iters"],
+              "peak_mem_bytes": peak, **p,
+              "idle_share": 1 - p["device_busy_ms"] / t["latency_ms_mean"]})
     return launches
 
 
@@ -414,20 +752,32 @@ def main() -> int:
           "nvidia_smi": smi})
 
     t0 = time.perf_counter()
-    phase_build()
-    summary = phase_kernels(args.seed)
-    launches = phase_model(args.seed)
+    seconds = {}
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t
+        emit({"phase": "seconds", "of": name, "seconds": seconds[name]})
+        return out
+
+    timed("build", phase_build)
+    summary = timed("kernels", phase_kernels, args.seed)
+    summary.update(timed("backward", phase_backward, args.seed))
+    timed("model", phase_model, args.seed)
+    launches = timed("train", phase_train, args.seed)
     line = []
     for name in REPLACES:
         s = summary[name]
+        calls = sum(FWD_CALLS if name in FORWARD else BWD_CALLS)
         line.append({"name": name, "route": "cuda", "source": SOURCE[name],
                      "replaces": REPLACES[name], "launches": launches[name],
                      "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                      "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                      "bound_by": "bytes" if s["bound_by"] == {"bytes"} else "operations",
                      "library_ms": s["library_ms"],
-                     "per": "one B=16 fp32 forward at 256 (16 calls)"})
-    emit({"phase": "done", "seconds": time.perf_counter() - t0})
+                     "per": f"one fp32 train step, D*B=16 at 256 ({calls} calls)"})
+    emit({"phase": "done", "seconds": time.perf_counter() - t0, "by_phase": seconds})
     print(smi, flush=True)
     emit({"kernels": line})
     print(json.dumps({"ok": True, "device": {

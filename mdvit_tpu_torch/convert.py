@@ -89,7 +89,7 @@ def _to_torch(arr: np.ndarray) -> torch.Tensor:
         arr = np.transpose(arr, (3, 2, 0, 1))
     elif arr.ndim == 2:  # dense kernel (in, out) → (out, in)
         arr = arr.T
-    return torch.from_numpy(np.ascontiguousarray(arr, np.float32))
+    return torch.from_numpy(np.array(arr, np.float32, order="C"))  # a writable copy
 
 
 def from_jax_variables(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:

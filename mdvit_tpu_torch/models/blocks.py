@@ -6,6 +6,10 @@
 * ``FactorAtt`` with the Sup domain gate → ``factorized_attention``;
 * ``SerialBlock`` and ``MHSAStage``.
 
+In train mode the blocks drop as the JAX package's do: ``FastDropout`` after
+``proj`` and in the MLP at ``drop``, and stochastic depth on both residual
+branches at ``drop_path``, all drawing from the caller's generator ``gen``.
+
 Tokens are ``(B, N, C)`` with a static ``size=(H, W)`` grid. The stage owns
 the shared CPE and CRPE and hands them to its blocks at call time, so they
 appear once in the ``state_dict``, under ``mhsa_stages.i.{cpe, crpe}``.
@@ -20,7 +24,7 @@ from torch import nn
 
 from mdvit_tpu_torch.ops import dwconv
 from mdvit_tpu_torch.ops import factorized_attention as fa
-from mdvit_tpu_torch.ops.layers import Linear, Mlp
+from mdvit_tpu_torch.ops.layers import Linear, Mlp, drop_path, fast_dropout
 from mdvit_tpu_torch.ops.norm import DomainLayerNorm
 
 # window size → heads, in channel order (blocks.py DEFAULT_CRPE_WINDOW)
@@ -88,9 +92,10 @@ class FactorAtt(nn.Module):
     fp32, and multiplies the attention output before ``proj``."""
 
     def __init__(self, dim: int, num_heads: int, num_domains: int,
-                 dtype: torch.dtype = torch.float32):
+                 proj_drop: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
+        self.proj_drop = proj_drop
         self.qkv = Linear(dim, 3 * dim, dtype=dtype)
         self.proj = Linear(dim, dim, dtype=dtype)
         hidden = max(dim // 2, 4)
@@ -99,7 +104,8 @@ class FactorAtt(nn.Module):
             Linear(hidden, dim, dtype=dtype))
 
     def forward(self, x: torch.Tensor, size: Tuple[int, int],
-                domain_onehot: torch.Tensor, crpe: ConvRelPosEnc) -> torch.Tensor:
+                domain_onehot: torch.Tensor, crpe: ConvRelPosEnc,
+                train: bool = False, gen: torch.Generator | None = None) -> torch.Tensor:
         b, _, c = x.shape
         h = self.num_heads
         ch = c // h
@@ -109,43 +115,50 @@ class FactorAtt(nn.Module):
         gate = self.domain_layer(domain_onehot.to(out.dtype))
         gate = torch.softmax(gate.reshape(b, h, ch).float(), dim=1)
         out = out * gate.reshape(b, 1, c).to(out.dtype)
-        return self.proj(out)
+        return fast_dropout(self.proj(out), self.proj_drop, train, gen)
 
 
 class SerialBlock(nn.Module):
-    """CPE → LN → FactorAtt → + → LN → MLP → + (eval: DropPath is identity)."""
+    """CPE → LN → FactorAtt → DropPath + → LN → MLP → DropPath +."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
-                 num_domains: int, dtype: torch.dtype = torch.float32):
+                 num_domains: int, drop: float = 0.0, drop_path: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.norm1 = DomainLayerNorm(dim)
-        self.factoratt_crpe = FactorAtt(dim, num_heads, num_domains, dtype=dtype)
+        self.factoratt_crpe = FactorAtt(dim, num_heads, num_domains, drop, dtype=dtype)
         self.norm2 = DomainLayerNorm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), drop, dtype=dtype)
+        self.drop_path = drop_path
 
     def forward(self, x: torch.Tensor, size: Tuple[int, int],
                 domain_onehot: torch.Tensor, cpe: ConvPosEnc,
-                crpe: ConvRelPosEnc) -> torch.Tensor:
+                crpe: ConvRelPosEnc, train: bool = False,
+                gen: torch.Generator | None = None) -> torch.Tensor:
         x = cpe(x, size)
-        x = x + self.factoratt_crpe(self.norm1(x), size, domain_onehot, crpe)
-        return x + self.mlp(self.norm2(x))
+        cur = self.factoratt_crpe(self.norm1(x), size, domain_onehot, crpe, train, gen)
+        x = x + drop_path(cur, self.drop_path, train, gen)
+        cur = self.mlp(self.norm2(x), train, gen)
+        return x + drop_path(cur, self.drop_path, train, gen)
 
 
 class MHSAStage(nn.Module):
     """Shared CPE and CRPE plus ``num_layers`` serial blocks, (B, N, C) → (B, N, C)."""
 
     def __init__(self, dim: int, num_layers: int, num_heads: int,
-                 mlp_ratio: float, num_domains: int,
-                 dtype: torch.dtype = torch.float32):
+                 mlp_ratio: float, num_domains: int, drop: float = 0.0,
+                 drop_path: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cpe = ConvPosEnc(dim, dtype=dtype)
         self.crpe = ConvRelPosEnc(dim // num_heads, num_heads, dtype=dtype)
         self.mhca_blks = nn.ModuleList(
-            SerialBlock(dim, num_heads, mlp_ratio, num_domains, dtype=dtype)
+            SerialBlock(dim, num_heads, mlp_ratio, num_domains, drop, drop_path,
+                        dtype=dtype)
             for _ in range(num_layers))
 
     def forward(self, x: torch.Tensor, size: Tuple[int, int],
-                domain_onehot: torch.Tensor) -> torch.Tensor:
+                domain_onehot: torch.Tensor, train: bool = False,
+                gen: torch.Generator | None = None) -> torch.Tensor:
         for blk in self.mhca_blks:
-            x = blk(x, size, domain_onehot, self.cpe, self.crpe)
+            x = blk(x, size, domain_onehot, self.cpe, self.crpe, train, gen)
         return x

@@ -1,11 +1,15 @@
 """MDViT (``mdvit_tpu/models/mdvit.py``): the factorized-attention U-Net with
 the Sup domain gate, a 1×1 ``finalconv`` head and four MLPFM debranches
-``debranch{1..4}`` (reference names), eval mode.
+``debranch{1..4}`` (reference names).
 
-This slice serves the primary head: ``aux_mode="none"`` returns
-``{"seg": (logits, None), "feat": ...}``. The debranches hold their weights,
-so reference checkpoints load whole; the other aux modes come with the
-training slice.
+Two aux modes are ported:
+
+* ``"none"`` (serving): ``{"seg": (logits, None), "feat": ...}``;
+* ``"grouped"`` (the MKD train step): the batch is D equal domain-contiguous
+  groups; each debranch runs on its own domain's group only, so only its BN
+  stats move, and the aux logits are re-stacked to (D·B, H, W, 1).
+
+``"select"`` and ``"features"`` (eval) are not ported yet.
 """
 from __future__ import annotations
 
@@ -26,9 +30,11 @@ class MDViT(FATEncoderDecoder):
                  embed_dims: Sequence[int] = (64, 128, 320, 512),
                  mlp_ratios: Sequence[float] = (8, 8, 4, 4),
                  num_heads: Sequence[int] = (8, 8, 8, 8),
-                 num_domains: int = 4, dtype: torch.dtype = torch.float32):
+                 num_domains: int = 4, drop_rate: float = 0.0,
+                 drop_path_rate: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__(num_layers, embed_dims, mlp_ratios, num_heads,
-                         num_domains, dtype)
+                         num_domains, drop_rate, drop_path_rate, dtype)
+        self.num_domains = num_domains
         dims = tuple(embed_dims)
         self.finalconv = nn.Sequential(Conv2d(dims[0], 1, 1, dtype=dtype))
         for d in range(1, num_domains + 1):
@@ -37,18 +43,29 @@ class MDViT(FATEncoderDecoder):
 
     def forward(self, x: torch.Tensor, domain_onehot: torch.Tensor,
                 train: bool = False, out_feat: bool = False,
-                aux_mode: str = "none") -> dict[str, Any]:
-        """x (B, H, W, 3) normalised images, domain_onehot (B, D).
+                aux_mode: str = "none",
+                gen: torch.Generator | None = None) -> dict[str, Any]:
+        """x (B, H, W, 3) normalised images, domain_onehot (B, D); ``gen``
+        drives dropout and stochastic depth when ``train``.
 
-        Returns ``{"seg": (logits (B, H, W, 1), None), "feat": (B, C₄) or
-        None}``; ``feat`` is the spatial mean of stage 4 when ``out_feat``."""
-        if train:
-            raise NotImplementedError("training is not ported yet")
-        if aux_mode != "none":
+        Returns ``{"seg": (logits (B, H, W, 1), aux logits or None),
+        "feat": (B, C₄) or None}``; ``feat`` is the spatial mean of stage 4
+        when ``out_feat``."""
+        if aux_mode not in ("none", "grouped"):
             raise NotImplementedError(
-                f"aux_mode={aux_mode!r}: only 'none' (serving) is ported yet")
-        encoder_outs, dec = self.forward_features(x, domain_onehot)
+                f"aux_mode={aux_mode!r}: only 'none' and 'grouped' are ported yet")
+        encoder_outs, dec = self.forward_features(x, domain_onehot, train, gen)
         feat = encoder_outs[3].mean(dim=(1, 2)) if out_feat else None
         # the 1×1 finalconv commutes with the upsample: conv at H/4, resize 1 channel
         logits = resize_bilinear(self.finalconv(dec), (x.shape[1], x.shape[2]))
-        return {"seg": (logits, None), "feat": feat}
+        aux = None
+        if aux_mode == "grouped":
+            b, d = x.shape[0], self.num_domains
+            if b % d:
+                raise ValueError(f"grouped aux_mode needs batch ({b}) divisible "
+                                 f"by num_domains ({d}), domain-contiguous")
+            groups = [f.chunk(d, dim=0) for f in (*encoder_outs, dec)]
+            aux = torch.cat([
+                getattr(self, f"debranch{i + 1}")([g[i] for g in groups], train, gen)
+                for i in range(d)])
+        return {"seg": (logits, aux), "feat": feat}

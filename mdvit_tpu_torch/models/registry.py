@@ -13,14 +13,18 @@ from mdvit_tpu_torch.ops.initializers import init_weights_
 def build_mdvit(img_size: int = 256, num_domains: int = 4,
                 dtype: torch.dtype = torch.float32,
                 device: str | torch.device | None = None, seed: int = 0,
+                drop_rate: float = 0.1, drop_path_rate: float = 0.1,
                 **kw: Any) -> MDViT:
     """MDViT with the Sup gate and MLPFM debranches, weights drawn from
     ``seed``, in eval mode on ``device`` (``cuda`` unless told otherwise).
+    Dropout and stochastic depth default to the reference trainer's 0.1
+    (``mdvit_tpu/models/mdvit.py:build_mdvit``); they act in train mode only.
 
     ``kw`` passes model widths and depths (``num_layers``, ``embed_dims``,
     ``mlp_ratios``, ``num_heads``); ``model.config`` records every argument,
     so ``load_weights`` can rebuild the model."""
     dev = resolve_device(device)
+    kw = {"drop_rate": drop_rate, "drop_path_rate": drop_path_rate, **kw}
     model = MDViT(img_size=img_size, num_domains=num_domains, dtype=dtype, **kw)
     init_weights_(model, torch.Generator().manual_seed(seed))
     model.config = {"img_size": img_size, "num_domains": num_domains,

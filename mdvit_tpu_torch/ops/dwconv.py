@@ -6,25 +6,34 @@ Counterpart of ``mdvit_tpu/ops/pallas_dwconv.py``:
 * ``crpe_conv(q, v, w, b)`` → ``q · (dwconv₇ₓ₇(v) + b)`` (ConvRelPosEnc)
 
 Stride 1, zero SAME padding, w (K, K, C), b (C,). On a CUDA tensor each
-launches its kernel of ``csrc/dwconv.cu``; on a CPU tensor it runs its plain
-PyTorch version (``cpe_conv_ref``, ``crpe_conv_ref``), which sums the taps in
-the same order in fp32 and rounds once, as the Pallas kernels do.
+launches its kernels of ``csrc/dwconv.cu``; on a CPU tensor it runs its plain
+PyTorch versions (``cpe_conv_ref``/``cpe_conv_bwd_ref``,
+``crpe_conv_ref``/``crpe_conv_bwd_ref``), which sum the taps in the same
+order in fp32 and round once, as the Pallas kernels do.
+
+When an input needs a gradient the call goes through an ``autograd.Function``
+(the Pallas ``custom_vjp``): the image-shaped gradients are dwconvs with the
+flipped kernel, and dw, db are fp32 sums over batch and space, cast to w's
+dtype as ``_cpe_vjp_bwd``/``_crpe_vjp_bwd`` do. Without one (serving under
+``no_grad``) the forward is called directly.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from mdvit_tpu_torch.ops import kernels
 
 
-def _dwconv_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Σ_ky,kx xpad[:, ky:ky+H, kx:kx+W, :] · w[ky, kx] in fp32 (shift and add)."""
+def _dwconv_fp32(x: torch.Tensor, w: torch.Tensor, flip: bool = False) -> torch.Tensor:
+    """Σ_ky,kx xpad[:, ky:ky+H, kx:kx+W, :] · w[ky, kx] in fp32 (shift and
+    add); ``flip`` convolves with w turned by 180°."""
     k = w.shape[0]
     p = k // 2
     h, wd = x.shape[1], x.shape[2]
     xp = F.pad(x.float(), (0, 0, p, p, p, p))
-    wf = w.float()
+    wf = w.float().flip(0, 1) if flip else w.float()
     acc = None
     for ky in range(k):
         for kx in range(k):
@@ -33,9 +42,30 @@ def _dwconv_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def _weight_grads(x: torch.Tensor, u: torch.Tensor, k: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """dw[ky, kx] = Σ xpad[:, ky:ky+H, kx:kx+W] · u and db = Σ u, fp32."""
+    p = k // 2
+    h, wd = x.shape[1], x.shape[2]
+    xp = F.pad(x.float(), (0, 0, p, p, p, p))
+    dw = torch.stack([
+        torch.stack([(xp[:, ky:ky + h, kx:kx + wd, :] * u).sum(dim=(0, 1, 2))
+                     for kx in range(k)]) for ky in range(k)])
+    return dw, u.sum(dim=(0, 1, 2))
+
+
 def cpe_conv_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Plain version of ``cpe_conv``."""
     return (_dwconv_fp32(x, w) + b.float() + x.float()).to(x.dtype)
+
+
+def cpe_conv_bwd_ref(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
+    """Plain backward of ``cpe_conv`` (``_cpe_bwd_kernel``): dx in x's dtype,
+    dw (K, K, C) and db (C,) in fp32."""
+    gf = g.float()
+    dx = (_dwconv_fp32(gf, w, flip=True) + gf).to(x.dtype)
+    dw, db = _weight_grads(x, gf, w.shape[0])
+    return dx, dw, db
 
 
 def crpe_conv_ref(q: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
@@ -44,9 +74,22 @@ def crpe_conv_ref(q: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     return (q.float() * (_dwconv_fp32(v, w) + b.float())).to(q.dtype)
 
 
+def crpe_conv_bwd_ref(q: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                      b: torch.Tensor, g: torch.Tensor):
+    """Plain backward of ``crpe_conv`` (``_crpe_bwd_kernel``): with
+    u = g ⊙ q, dq = g ⊙ (dwconv(v) + b), dv = dwconv(u, flipped w),
+    dw = Σ vpad·u, db = Σ u; dq, dv in the input dtype, dw, db fp32."""
+    gf = g.float()
+    dq = (gf * (_dwconv_fp32(v, w) + b.float())).to(q.dtype)
+    u = gf * q.float()
+    dv = _dwconv_fp32(u, w, flip=True).to(v.dtype)
+    dw, db = _weight_grads(v, u, w.shape[0])
+    return dq, dv, dw, db
+
+
 def _check_grid(name, k, w, b, *grids):
     x = grids[0]
-    for t in (*grids, w, b):
+    for t in (*grids, w) + (() if b is None else (b,)):
         if t.device != x.device or t.device.type != "cuda":
             raise ValueError(f"{name}: all tensors must share one CUDA device")
         if t.dtype != x.dtype:
@@ -61,15 +104,24 @@ def _check_grid(name, k, w, b, *grids):
     if tuple(w.shape) != (k, k, c) or not w.is_contiguous():
         raise ValueError(f"{name}: want a contiguous ({k}, {k}, {c}) kernel, "
                          f"got {tuple(w.shape)}")
-    if tuple(b.shape) != (c,) or not b.is_contiguous():
+    if b is not None and (tuple(b.shape) != (c,) or not b.is_contiguous()):
         raise ValueError(f"{name}: want a contiguous ({c},) bias")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (*grids, w, b)):
-        raise NotImplementedError(f"{name}: the backward kernel is not ported yet")
 
 
-def cpe_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``dwconv₃ₓ₃(x) + b + x``; x (B, H, W, C) → contiguous (B, H, W, C)."""
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _weight_scratch(x: torch.Tensor, k: int):
+    """Per-tile partial sums of (dw, db) and their fixed-order total (fp32)."""
+    bsz, h, wd, c = x.shape
+    tiles = kernels.dwconv_weight_tiles(bsz * h * wd)
+    partial = torch.empty((tiles, k * k + 1, c), dtype=torch.float32, device=x.device)
+    total = torch.empty((k * k + 1, c), dtype=torch.float32, device=x.device)
+    return partial, total
+
+
+def _cpe_forward(x, w, b):
     if x.device.type == "cpu":
         return cpe_conv_ref(x, w, b)
     _check_grid("cpe_conv", 3, w, b, x)
@@ -80,18 +132,33 @@ def cpe_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         status = lib.mdvit_cpe_conv_fwd(
             kernels.dtype_code(x.dtype), x.data_ptr(), w.data_ptr(),
             b.data_ptr(), out.data_ptr(), bsz, h, wd, c, x.stride(0),
-            x.stride(2), torch.cuda.current_stream().cuda_stream)
+            x.stride(2), _stream())
     kernels.check_status("cpe_conv", status)
     kernels.LAUNCHES["cpe_conv"] += 1
     return out
 
 
-def crpe_conv(q: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
-              b: torch.Tensor) -> torch.Tensor:
-    """``q · (dwconv₇ₓ₇(v) + b)``; q, v (B, H, W, C) → contiguous (B, H, W, C).
+def _cpe_backward(x, w, g):
+    if x.device.type == "cpu":
+        return cpe_conv_bwd_ref(x, w, g)
+    g = g.contiguous()
+    _check_grid("cpe_conv_bwd", 3, w, None, x, g)
+    bsz, h, wd, c = x.shape
+    dx = torch.empty((bsz, h, wd, c), dtype=x.dtype, device=x.device)
+    partial, total = _weight_scratch(x, 3)
+    lib = kernels.library("dwconv")
+    with torch.cuda.device(x.device):
+        status = lib.mdvit_cpe_conv_bwd(
+            kernels.dtype_code(x.dtype), x.data_ptr(), w.data_ptr(),
+            g.data_ptr(), dx.data_ptr(), partial.data_ptr(), total.data_ptr(),
+            partial.shape[0], bsz, h, wd, c, x.stride(0), x.stride(2),
+            _stream())
+    kernels.check_status("cpe_conv_bwd", status)
+    kernels.LAUNCHES["cpe_conv_bwd"] += 1
+    return dx, total[:9].view(3, 3, c), total[9]
 
-    q and v may be strided views with unit channel stride (e.g. slices of a
-    (B, H, W, 3C) projection); no copy is made."""
+
+def _crpe_forward(q, v, w, b):
     if q.device.type == "cpu":
         return crpe_conv_ref(q, v, w, b)
     _check_grid("crpe_conv", 7, w, b, q, v)
@@ -102,8 +169,80 @@ def crpe_conv(q: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         status = lib.mdvit_crpe_conv_fwd(
             kernels.dtype_code(q.dtype), q.data_ptr(), v.data_ptr(),
             w.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, h, wd, c,
-            q.stride(0), q.stride(2), v.stride(0), v.stride(2),
-            torch.cuda.current_stream().cuda_stream)
+            q.stride(0), q.stride(2), v.stride(0), v.stride(2), _stream())
     kernels.check_status("crpe_conv", status)
     kernels.LAUNCHES["crpe_conv"] += 1
     return out
+
+
+def _crpe_backward(q, v, w, b, g):
+    if q.device.type == "cpu":
+        return crpe_conv_bwd_ref(q, v, w, b, g)
+    g = g.contiguous()
+    _check_grid("crpe_conv_bwd", 7, w, b, q, v, g)
+    bsz, h, wd, c = q.shape
+    dq, dv = (torch.empty((bsz, h, wd, c), dtype=q.dtype, device=q.device)
+              for _ in range(2))
+    partial, total = _weight_scratch(q, 7)
+    lib = kernels.library("dwconv")
+    with torch.cuda.device(q.device):
+        status = lib.mdvit_crpe_conv_bwd(
+            kernels.dtype_code(q.dtype), q.data_ptr(), v.data_ptr(),
+            w.data_ptr(), b.data_ptr(), g.data_ptr(), dq.data_ptr(),
+            dv.data_ptr(), partial.data_ptr(), total.data_ptr(),
+            partial.shape[0], bsz, h, wd, c, q.stride(0), q.stride(2),
+            v.stride(0), v.stride(2), _stream())
+    kernels.check_status("crpe_conv_bwd", status)
+    kernels.LAUNCHES["crpe_conv_bwd"] += 1
+    return dq, dv, total[:49].view(7, 7, c), total[49]
+
+
+class _CpeConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        ctx.b_dtype = b.dtype
+        return _cpe_forward(x, w, b)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw, db = _cpe_backward(x, w, g)
+        return dx, dw.to(w.dtype), db.to(ctx.b_dtype)
+
+
+class _CrpeConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, v, w, b):
+        ctx.save_for_backward(q, v, w, b)
+        return _crpe_forward(q, v, w, b)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        q, v, w, b = ctx.saved_tensors
+        dq, dv, dw, db = _crpe_backward(q, v, w, b, g)
+        return dq, dv, dw.to(w.dtype), db.to(b.dtype)
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def cpe_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``dwconv₃ₓ₃(x) + b + x``; x (B, H, W, C) → contiguous (B, H, W, C)."""
+    if _needs_grad(x, w, b):
+        return _CpeConv.apply(x, w, b)
+    return _cpe_forward(x, w, b)
+
+
+def crpe_conv(q: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+              b: torch.Tensor) -> torch.Tensor:
+    """``q · (dwconv₇ₓ₇(v) + b)``; q, v (B, H, W, C) → contiguous (B, H, W, C).
+
+    q and v may be strided views with unit channel stride (e.g. slices of a
+    (B, H, W, 3C) projection); no copy is made."""
+    if _needs_grad(q, v, w, b):
+        return _CrpeConv.apply(q, v, w, b)
+    return _crpe_forward(q, v, w, b)

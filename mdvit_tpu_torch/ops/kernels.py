@@ -36,11 +36,20 @@ SOURCES = {
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"factorized_attention": 0, "cpe_conv": 0, "crpe_conv": 0}
+LAUNCHES = {"factorized_attention": 0, "cpe_conv": 0, "crpe_conv": 0,
+            "factorized_attention_bwd": 0, "cpe_conv_bwd": 0, "crpe_conv_bwd": 0}
+
+# pixels per tile of the dw/db reduction (``kWeightTilePixels`` in dwconv.cu)
+WEIGHT_TILE_PIXELS = 256
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 BUILD_INFO: dict = {}
+
+
+def dwconv_weight_tiles(pixels: int) -> int:
+    """Tiles of the first pass of a dw/db reduction over ``pixels`` = B·H·W."""
+    return (pixels + WEIGHT_TILE_PIXELS - 1) // WEIGHT_TILE_PIXELS
 
 
 def reset_launches() -> None:
@@ -139,6 +148,15 @@ _ARGTYPES = {
         + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]),
     "mdvit_crpe_conv_fwd": (
         [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+        + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]),
+    "mdvit_factorized_attention_bwd": (
+        [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+        + [ctypes.c_longlong] * 4 + [ctypes.c_float, ctypes.c_void_p]),
+    "mdvit_cpe_conv_bwd": (
+        [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+        + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]),
+    "mdvit_crpe_conv_bwd": (
+        [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
         + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]),
 }
 

@@ -1,8 +1,14 @@
 """Conv and MLP building blocks (``mdvit_tpu/ops/layers.py``), NHWC.
 
 Parameters are fp32; each layer casts them and its input to its compute
-``dtype`` (fp32 or bf16), as the flax modules' ``dtype`` does. Dropout and
-DropPath are identity in eval mode and are not ported in this slice.
+``dtype`` (fp32 or bf16), as the flax modules' ``dtype`` does.
+
+Dropout, DropPath and Dropout2d are identity in eval mode. In train mode each
+call draws one uint32 seed from an explicit CPU ``torch.Generator`` (``gen``)
+and hashes its mask's element counters on the input's device (SplitMix32, the
+JAX package's ``fast_uniform``): no mask crosses from host to device, and one
+seed gives the same masks on the CPU and on a card. JAX's threefry stream
+itself cannot be matched.
 """
 from __future__ import annotations
 
@@ -29,6 +35,80 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.bfloat16:
         return fast_gelu(x)
     return F.gelu(x)
+
+
+_U32 = 0xFFFFFFFF
+
+
+def _mul_u32(x: torch.Tensor, k: int) -> torch.Tensor:
+    """(x · k) mod 2³² for int64 x in [0, 2³²): k split in 16-bit halves so
+    no product leaves int64."""
+    hi, lo = k >> 16, k & 0xFFFF
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _U32
+
+
+def hash_u32(x: torch.Tensor) -> torch.Tensor:
+    """SplitMix32 finalizer (``mdvit_tpu/data/augment.py:_hash_u32``) on
+    uint32 values held in int64."""
+    x = x & _U32
+    x = x ^ (x >> 16)
+    x = _mul_u32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul_u32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def fast_uniform(seed: int, shape, device: torch.device | str = "cpu") -> torch.Tensor:
+    """U[0, 1) fp32 of ``shape`` from hashed row-major element counters,
+    bit-equal to ``mdvit_tpu/data/augment.py:fast_uniform`` at offset 0."""
+    n = 1
+    for s in shape:
+        n *= int(s)
+    idx = torch.arange(n, dtype=torch.int64, device=device).reshape(tuple(shape))
+    base = ((int(seed) & _U32) * 0x9E3779B9) & _U32
+    bits = hash_u32(idx + base)
+    return (bits >> 8).float() * (1.0 / (1 << 24))
+
+
+def draw_seed(gen: torch.Generator | None) -> int:
+    """One uint32 from ``gen`` (the JAX package's ``jax.random.bits``)."""
+    if gen is None:
+        raise ValueError("train-mode dropout needs a torch.Generator")
+    return int(torch.randint(0, 1 << 32, (), dtype=torch.int64, generator=gen))
+
+
+def _keep_mask(keep: float, shape, gen, like: torch.Tensor) -> torch.Tensor:
+    """Bernoulli(keep) bools of ``shape``, drawn on ``like``'s device."""
+    return fast_uniform(draw_seed(gen), shape, device=like.device) < keep
+
+
+def drop_path(x: torch.Tensor, rate: float, train: bool, gen) -> torch.Tensor:
+    """Stochastic depth (``layers.py:DropPath``): one keep draw per sample."""
+    if rate == 0.0 or not train:
+        return x
+    keep = 1.0 - rate
+    mask = _keep_mask(keep, (x.shape[0],) + (1,) * (x.dim() - 1), gen, x)
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def dropout2d(x: torch.Tensor, rate: float, train: bool, gen) -> torch.Tensor:
+    """Channel dropout over NHWC (``layers.py:Dropout2d``): whole channels
+    per sample."""
+    if rate == 0.0 or not train:
+        return x
+    keep = 1.0 - rate
+    mask = _keep_mask(keep, (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],),
+                      gen, x)
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def fast_dropout(x: torch.Tensor, rate: float, train: bool, gen) -> torch.Tensor:
+    """Element dropout with hashed counters (``layers.py:FastDropout``)."""
+    if rate == 0.0 or not train:
+        return x
+    keep = 1.0 - rate
+    mask = _keep_mask(keep, x.shape, gen, x)
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class Conv2d(nn.Conv2d):
@@ -77,8 +157,9 @@ class ConvBN(nn.Module):
                            bias=False, dtype=dtype)
         self.bn = DomainBatchNorm(out_ch)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.hardswish(self.bn(self.conv(x)))
+    def forward(self, x: torch.Tensor, domain_onehot: torch.Tensor | None = None,
+                train: bool = False) -> torch.Tensor:
+        return F.hardswish(self.bn(self.conv(x), domain_onehot, train))
 
 
 class DWConvBN(nn.Module):
@@ -109,18 +190,22 @@ class DWConvBN(nn.Module):
             raise ValueError(f"dw_groups_on must be 'in' or 'out', got {dw_groups_on!r}")
         self.bn = DomainBatchNorm(out_ch)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.hardswish(self.bn(self.pwconv(self.dwconv(x))))
+    def forward(self, x: torch.Tensor, domain_onehot: torch.Tensor | None = None,
+                train: bool = False) -> torch.Tensor:
+        return F.hardswish(self.bn(self.pwconv(self.dwconv(x)), domain_onehot, train))
 
 
 class Mlp(nn.Module):
-    """Transformer FFN: fc1 → GELU → fc2 (eval mode: dropout is identity)."""
+    """Transformer FFN: fc1 → GELU → drop1 → fc2 → drop2 (``FastDropout``)."""
 
-    def __init__(self, in_features: int, hidden_features: int,
+    def __init__(self, in_features: int, hidden_features: int, drop: float = 0.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.fc1 = Linear(in_features, hidden_features, dtype=dtype)
         self.fc2 = Linear(hidden_features, in_features, dtype=dtype)
+        self.drop = drop
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(gelu(self.fc1(x)))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                gen: torch.Generator | None = None) -> torch.Tensor:
+        x = fast_dropout(gelu(self.fc1(x)), self.drop, train, gen)
+        return fast_dropout(self.fc2(x), self.drop, train, gen)

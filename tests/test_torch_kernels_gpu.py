@@ -12,10 +12,17 @@ import torch
 
 from mdvit_tpu_torch.ops import dwconv, kernels
 from mdvit_tpu_torch.ops import factorized_attention as fa
+from mdvit_tpu_torch.ops.layers import dropout2d, drop_path, fast_dropout
 
 torch.set_num_threads(2)
 
 STAGE_C_CH = [(64, 8), (128, 16), (320, 40), (512, 64)]
+FORWARD = ("factorized_attention", "cpe_conv", "crpe_conv")
+BACKWARD = ("factorized_attention_bwd", "cpe_conv_bwd", "crpe_conv_bwd")
+
+
+def _counts(names):
+    return {n: kernels.LAUNCHES[n] for n in names}
 
 
 def _need_card():
@@ -27,6 +34,10 @@ def _need_card():
 # (and FMA contraction); bf16 by a rounding step of the output
 GPU_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
            torch.bfloat16: dict(rtol=2 ** -7, atol=2 ** -7)}
+# gradients: dw, db sum 128 products of O(1) terms in another order (fp32),
+# then bf16 rounds them once to w's dtype (a step of 2⁻⁷ of their ~10 scale)
+GRAD_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-4),
+            torch.bfloat16: dict(rtol=2 ** -7, atol=2 ** -4)}
 
 
 @pytest.mark.gpu
@@ -52,7 +63,7 @@ def test_kernels_match_plain_on_card(c, ch, dtype):
     torch.testing.assert_close(dwconv.crpe_conv(gq, gv, w7, b).float(),
                                dwconv.crpe_conv_ref(gq, gv, w7, b).float(),
                                **GPU_TOL[dtype])
-    assert kernels.LAUNCHES == {"factorized_attention": 1, "cpe_conv": 1, "crpe_conv": 1}
+    assert _counts(FORWARD) == {"factorized_attention": 1, "cpe_conv": 1, "crpe_conv": 1}
 
 
 @pytest.mark.gpu
@@ -84,7 +95,8 @@ def test_model_forward_on_card_goes_through_the_kernels():
     with torch.no_grad():
         got = model(x, oh)["seg"][0]
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES == {"factorized_attention": 8, "cpe_conv": 8, "crpe_conv": 8}
+    assert _counts(FORWARD) == {"factorized_attention": 8, "cpe_conv": 8, "crpe_conv": 8}
+    assert _counts(BACKWARD) == {n: 0 for n in BACKWARD}
     with mock.patch.object(fa, "factorized_attention", fa.factorized_attention_ref), \
             mock.patch.object(dwconv, "cpe_conv", dwconv.cpe_conv_ref), \
             mock.patch.object(dwconv, "crpe_conv", dwconv.crpe_conv_ref), \
@@ -92,3 +104,65 @@ def test_model_forward_on_card_goes_through_the_kernels():
         want = model(x, oh)["seg"][0]
     # 8 blocks carry each kernel's last-bit fp32 differences; relative to scale
     assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,ch", STAGE_C_CH)
+def test_backward_kernels_match_plain_on_card(c, ch, dtype):
+    """The three autograd Functions on the card: gradients through the
+    backward kernels against the plain backwards on the same inputs, and
+    dw/db the same bits on a second call (no atomics)."""
+    _need_card()
+    rs = np.random.RandomState(c + 7)
+
+    def leaf(*shape, std=1.0):
+        a = (std * rs.standard_normal(shape)).astype(np.float32)
+        return torch.from_numpy(a).to("cuda", dtype).requires_grad_(True)
+
+    qkv, g = leaf(2, 64, 3 * c), leaf(2, 64, c).detach()
+    w3, w7 = leaf(3, 3, c, std=0.5), leaf(7, 7, c, std=0.2)
+    b = leaf(c, std=0.1)
+    q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+    grid = (2, 8, 8, c)
+    kernels.reset_launches()
+    got = torch.autograd.grad(fa.factorized_attention(q, k, v, ch, ch ** -0.5), qkv, g)[0]
+    want = fa.factorized_attention_bwd_ref(q, k, v, g, ch, ch ** -0.5)
+    for a, e in zip(got.split(c, dim=-1), want):
+        torch.testing.assert_close(a.float(), e.float(), **GPU_TOL[dtype])
+
+    x, gg = q.detach().reshape(grid).contiguous(), g.reshape(grid)
+    cpe_grads = []
+    for _ in range(2):
+        xl = x.clone().requires_grad_(True)
+        cpe_grads.append(torch.autograd.grad(dwconv.cpe_conv(xl, w3, b), (xl, w3, b), gg))
+    want = dwconv.cpe_conv_bwd_ref(x, w3.detach(), gg)
+    for a, e in zip(cpe_grads[0], want):
+        torch.testing.assert_close(a.float(), e.float(), **GRAD_TOL[dtype])
+    for a, e in zip(cpe_grads[0], cpe_grads[1]):
+        assert torch.equal(a, e)
+
+    qg, vg = q.reshape(grid), v.reshape(grid)
+    got = torch.autograd.grad(dwconv.crpe_conv(qg, vg, w7, b), (qkv, w7, b), gg)
+    want = dwconv.crpe_conv_bwd_ref(qg.detach(), vg.detach(), w7.detach(), b.detach(), gg)
+    dqkv = got[0].reshape(grid[:3] + (3 * c,))
+    for a, e in zip((dqkv[..., :c], dqkv[..., 2 * c:], got[1], got[2]), want):
+        torch.testing.assert_close(a.float(), e.float(), **GRAD_TOL[dtype])
+    assert _counts(BACKWARD) == {"factorized_attention_bwd": 1, "cpe_conv_bwd": 2,
+                                 "crpe_conv_bwd": 1}
+
+
+@pytest.mark.gpu
+def test_dropout_masks_equal_on_card_and_cpu():
+    """One generator seed gives the same masks on a card as on the CPU: the
+    masks are hashed on the input's device, not drawn on the host. The kept
+    values may differ by a rounding step: CUDA may divide by the scalar keep
+    as a product with its reciprocal."""
+    _need_card()
+    x = torch.randn(4, 6, 6, 32, generator=torch.Generator().manual_seed(1))
+    for fn in (fast_dropout, drop_path, dropout2d):
+        want = fn(x, 0.3, True, torch.Generator().manual_seed(5))
+        got = fn(x.cuda(), 0.3, True, torch.Generator().manual_seed(5))
+        assert got.is_cuda
+        assert torch.equal(got.cpu() == 0, want == 0)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2 ** -22, atol=0)

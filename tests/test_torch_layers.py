@@ -87,8 +87,12 @@ def test_batch_norm_eval():
     v = _init(mod, x, None, use_running_average=True)
     port = _port(DomainBatchNorm(32), v, "core/bridge_bn1", "bridge.1.")
     _check(port(torch.from_numpy(x)), mod.apply(v, x, None, use_running_average=True))
-    with pytest.raises(NotImplementedError):
-        port(torch.from_numpy(x), train=True)
+    # train mode: per-domain batch moments and the folded running stats
+    oh = np.eye(4, dtype=np.float32)[[3, 1]]
+    want, upd = mod.apply(v, x, oh, use_running_average=False, mutable=["batch_stats"])
+    _check(port(torch.from_numpy(x), torch.from_numpy(oh), train=True), want)
+    _check(port.running_mean, upd["batch_stats"]["mean"])
+    _check(port.running_var, upd["batch_stats"]["var"])
 
 
 @pytest.mark.parametrize("src,dst", [((8, 8), (16, 16)), ((16, 12), (6, 5)),
