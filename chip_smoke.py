@@ -19,6 +19,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
             shapes and types, two calls bit-equal, and the same times; the
             library yardstick of CPE/CRPE is cuDNN's backward of their
             ``F.conv2d(groups=C)`` forms (``aten.convolution_backward``);
+   crpe_split C′'s device launches per call (2: the fused tile kernel and
+            the reduce) and device ms per launch by kernel name at each
+            stage shape in fp32 and bf16, from ``torch.profiler``;
 4. model    the serving entry (``predict.make_forward`` on the full-width
             MDViT at 256², random weights from ``--seed``, 4 domains, mixed
             one-hots) with every launch counter read around one B=16 call;
@@ -90,7 +93,8 @@ MODEL_REL_TOL = 1e-4
 # in fp32), so their last bits move more.
 BWD_WEIGHT_REL_TOL = 1e-4
 
-# The kernels line gives each kernel's times for one fp32 train step at
+# The kernels line gives each kernel's times for one train step (fp32; bf16
+# under "bf16") at
 # D·B = 16, 256²: 2 encoder and 2 decoder blocks run at each stage shape, so
 # each forward kernel runs 4 times per shape; each backward kernel 4 times
 # per shape in the first pull and, in the second (domain_layer) pull, at
@@ -114,7 +118,10 @@ SOURCE = {name: "mdvit_tpu_torch/csrc/" + (
 # device-kernel names of the port's own kernels, for the profiler's share
 PORT_KERNEL_NAMES = ("factorized_attention_fwd_kernel", "factorized_attention_bwd_kernel",
                      "dwconv_fwd_kernel", "dwconv_weight_partial_kernel",
-                     "dwconv_weight_reduce_kernel")
+                     "dwconv_weight_reduce_kernel", "crpe_fwd_tiled_kernel",
+                     "crpe_bwd_tiled_kernel")
+# device launches of one C′ call: the fused tile kernel and the reduce
+CRPE_BWD_LAUNCHES = 2
 
 # the train step: D domains × B per domain, N images per domain store
 TRAIN_D, TRAIN_B, TRAIN_N = 4, 4, 8
@@ -234,22 +241,22 @@ def _inputs(kind: str, h: int, w: int, c: int, dtype, gen) -> dict:
 
 
 def _summary(names) -> dict:
-    return {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                   "library_ms": None, "bound_by": set()} for name in names}
+    return {name: {"max_abs_err": 0.0, "bound_by": set(),
+                   **{d: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None}
+                      for d in ("float32", "bfloat16")}} for name in names}
 
 
 def _add(s: dict, rec: dict, calls: int) -> None:
-    """Fold one shape's record into a kernel's per-train-step totals (the
-    fp32 times, ``calls`` calls at this shape); errors over both dtypes."""
+    """Fold one shape's record into a kernel's per-train-step totals of its
+    dtype (``calls`` calls at this shape); errors over both dtypes."""
     s["max_abs_err"] = max(s["max_abs_err"], rec["max_abs_err"])
-    if rec["dtype"] != "float32":
-        return
-    s["ms"] += calls * rec["ms"]
-    s["plain_ms"] += calls * rec["plain_ms"]
-    s["bound_ms"] += calls * rec["bound_ms"]
-    s["bound_by"].add(rec["bound_by"])
+    tot = s[rec["dtype"]]
+    for k in ("ms", "plain_ms", "bound_ms"):
+        tot[k] += calls * rec[k]
     if rec["library_ms"] is not None:
-        s["library_ms"] = (s["library_ms"] or 0.0) + calls * rec["library_ms"]
+        tot["library_ms"] = (tot["library_ms"] or 0.0) + calls * rec["library_ms"]
+    if rec["dtype"] == "float32":
+        s["bound_by"].add(rec["bound_by"])
 
 
 def phase_kernels(seed: int) -> dict:
@@ -405,6 +412,57 @@ def phase_backward(seed: int) -> dict:
     if failures:
         raise RuntimeError(f"{len(failures)} backward kernel check(s) failed")
     return summary
+
+
+def phase_crpe_split(seed: int) -> None:
+    """C′'s launches and device ms per launch at each stage shape; fails
+    unless every call is ``CRPE_BWD_LAUNCHES`` device launches."""
+    bad = [(r["H"], r["dtype"], r["launches_per_call"]) for r in crpe_bwd_split(seed)
+           if r["launches_per_call"] != CRPE_BWD_LAUNCHES]
+    if bad:
+        raise RuntimeError(f"C′ calls are not {CRPE_BWD_LAUNCHES} device launches: {bad}")
+
+
+def crpe_bwd_split(seed: int, reps: int = 10) -> list:
+    """C′'s device launches per call and device ms per launch, by device-kernel
+    name, at each stage shape in fp32 and bf16 (``torch.profiler`` over
+    ``reps`` calls of ``dwconv._crpe_backward`` on the main path's inputs)."""
+    gen = torch.Generator().manual_seed(seed + 11)
+    out = []
+    for h, w, c, _ in STAGES:
+        for dtype in (torch.float32, torch.bfloat16):
+            t = _inputs("crpe_conv", h, w, c, dtype, gen)
+            g = torch.randn(BATCH, h, w, c, generator=gen).to("cuda", dtype)
+            args = (t["q"], t["v"], t["w"], t["b"], g)
+            for _ in range(3):
+                dwconv._crpe_backward(*args)
+            torch.cuda.synchronize()
+            # a profiler window now and then records no device events at all
+            # (seen once in ~30 windows on an H100): take the next window
+            for _ in range(3):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(reps):
+                        dwconv._crpe_backward(*args)
+                    torch.cuda.synchronize()
+                by_name: dict = defaultdict(lambda: [0, 0.0])
+                for e in prof.events():
+                    if (e.device_type == torch.autograd.DeviceType.CUDA
+                            and not getattr(e, "is_user_annotation", False)):
+                        by_name[e.name][0] += 1
+                        by_name[e.name][1] += e.time_range.end - e.time_range.start
+                if by_name:
+                    break
+            rec = {"phase": "crpe_bwd_split", "B": BATCH, "H": h, "W": w, "C": c,
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "launches_per_call": sum(n for n, _ in by_name.values()) / reps,
+                   "ms_per_call": sum(us for _, us in by_name.values()) / reps / 1e3,
+                   "split": [{"name": name[:120], "launches_per_call": n / reps,
+                              "ms_per_launch": us / n / 1e3}
+                             for name, (n, us) in sorted(by_name.items())]}
+            emit(rec)
+            out.append(rec)
+            del t, g, args
+    return out
 
 
 # ----------------------------------------------------------------- phase 4
@@ -764,6 +822,7 @@ def main() -> int:
     timed("build", phase_build)
     summary = timed("kernels", phase_kernels, args.seed)
     summary.update(timed("backward", phase_backward, args.seed))
+    timed("crpe_split", phase_crpe_split, args.seed)
     timed("model", phase_model, args.seed)
     launches = timed("train", phase_train, args.seed)
     line = []
@@ -772,11 +831,10 @@ def main() -> int:
         calls = sum(FWD_CALLS if name in FORWARD else BWD_CALLS)
         line.append({"name": name, "route": "cuda", "source": SOURCE[name],
                      "replaces": REPLACES[name], "launches": launches[name],
-                     "max_abs_err": s["max_abs_err"], "ms": s["ms"],
-                     "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+                     "max_abs_err": s["max_abs_err"], **s["float32"],
                      "bound_by": "bytes" if s["bound_by"] == {"bytes"} else "operations",
-                     "library_ms": s["library_ms"],
-                     "per": f"one fp32 train step, D*B=16 at 256 ({calls} calls)"})
+                     "per": f"one fp32 train step, D*B=16 at 256 ({calls} calls)",
+                     "bf16": s["bfloat16"]})
     emit({"phase": "done", "seconds": time.perf_counter() - t0, "by_phase": seconds})
     print(smi, flush=True)
     emit({"kernels": line})

@@ -6,7 +6,8 @@ Counterpart of ``mdvit_tpu/ops/pallas_dwconv.py``:
 * ``crpe_conv(q, v, w, b)`` → ``q · (dwconv₇ₓ₇(v) + b)`` (ConvRelPosEnc)
 
 Stride 1, zero SAME padding, w (K, K, C), b (C,). On a CUDA tensor each
-launches its kernels of ``csrc/dwconv.cu``; on a CPU tensor it runs its plain
+launches its kernels of ``csrc/dwconv.cu`` (CRPE's tiled: one launch forward,
+a fused tile kernel and a reduce backward); on a CPU tensor it runs its plain
 PyTorch versions (``cpe_conv_ref``/``cpe_conv_bwd_ref``,
 ``crpe_conv_ref``/``crpe_conv_bwd_ref``), which sum the taps in the same
 order in fp32 and round once, as the Pallas kernels do.
@@ -112,13 +113,35 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _weight_scratch(x: torch.Tensor, k: int):
+def _weight_scratch(x: torch.Tensor, k: int, tiles: int):
     """Per-tile partial sums of (dw, db) and their fixed-order total (fp32)."""
-    bsz, h, wd, c = x.shape
-    tiles = kernels.dwconv_weight_tiles(bsz * h * wd)
+    c = x.shape[3]
     partial = torch.empty((tiles, k * k + 1, c), dtype=torch.float32, device=x.device)
     total = torch.empty((k * k + 1, c), dtype=torch.float32, device=x.device)
     return partial, total
+
+
+def _copy_bytes(*views: torch.Tensor) -> int:
+    """Bytes per halo copy of the tiled CRPE kernels: the widest of 16, 8, 4
+    (and 2 for bf16) that divides every pointer and, in elements, C and each
+    view's pixel and batch strides. The main path's C = 64/128/320/512 with
+    3C-strided q, v takes 16."""
+    item = views[0].element_size()
+    c = views[0].shape[3]
+    for vec in (16, 8, 4):
+        n = vec // item
+        if c % n == 0 and all(t.data_ptr() % vec == 0 and t.stride(2) % n == 0
+                              and t.stride(0) % n == 0 for t in views):
+            return vec
+    return item
+
+
+def _check_int32(name, *views):
+    """The tiled CRPE kernels index within one image in 32 bits."""
+    for t in views:
+        if t.shape[1] * t.shape[2] * max(t.stride(2), t.shape[3]) >= 2 ** 31:
+            raise ValueError(f"{name}: an image of {tuple(t.shape[1:])} with pixel "
+                             f"stride {t.stride(2)} overflows 32-bit indices")
 
 
 def _cpe_forward(x, w, b):
@@ -145,7 +168,7 @@ def _cpe_backward(x, w, g):
     _check_grid("cpe_conv_bwd", 3, w, None, x, g)
     bsz, h, wd, c = x.shape
     dx = torch.empty((bsz, h, wd, c), dtype=x.dtype, device=x.device)
-    partial, total = _weight_scratch(x, 3)
+    partial, total = _weight_scratch(x, 3, kernels.dwconv_weight_tiles(bsz * h * wd))
     lib = kernels.library("dwconv")
     with torch.cuda.device(x.device):
         status = lib.mdvit_cpe_conv_bwd(
@@ -162,6 +185,7 @@ def _crpe_forward(q, v, w, b):
     if q.device.type == "cpu":
         return crpe_conv_ref(q, v, w, b)
     _check_grid("crpe_conv", 7, w, b, q, v)
+    _check_int32("crpe_conv", q, v)
     bsz, h, wd, c = q.shape
     out = torch.empty((bsz, h, wd, c), dtype=q.dtype, device=q.device)
     lib = kernels.library("dwconv")
@@ -169,7 +193,8 @@ def _crpe_forward(q, v, w, b):
         status = lib.mdvit_crpe_conv_fwd(
             kernels.dtype_code(q.dtype), q.data_ptr(), v.data_ptr(),
             w.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, h, wd, c,
-            q.stride(0), q.stride(2), v.stride(0), v.stride(2), _stream())
+            q.stride(0), q.stride(2), v.stride(0), v.stride(2),
+            _copy_bytes(q, v, out), _stream())
     kernels.check_status("crpe_conv", status)
     kernels.LAUNCHES["crpe_conv"] += 1
     return out
@@ -180,10 +205,11 @@ def _crpe_backward(q, v, w, b, g):
         return crpe_conv_bwd_ref(q, v, w, b, g)
     g = g.contiguous()
     _check_grid("crpe_conv_bwd", 7, w, b, q, v, g)
+    _check_int32("crpe_conv_bwd", q, v, g)
     bsz, h, wd, c = q.shape
     dq, dv = (torch.empty((bsz, h, wd, c), dtype=q.dtype, device=q.device)
               for _ in range(2))
-    partial, total = _weight_scratch(q, 7)
+    partial, total = _weight_scratch(q, 7, kernels.crpe_weight_tiles(bsz, h, wd))
     lib = kernels.library("dwconv")
     with torch.cuda.device(q.device):
         status = lib.mdvit_crpe_conv_bwd(
@@ -191,7 +217,7 @@ def _crpe_backward(q, v, w, b, g):
             w.data_ptr(), b.data_ptr(), g.data_ptr(), dq.data_ptr(),
             dv.data_ptr(), partial.data_ptr(), total.data_ptr(),
             partial.shape[0], bsz, h, wd, c, q.stride(0), q.stride(2),
-            v.stride(0), v.stride(2), _stream())
+            v.stride(0), v.stride(2), _copy_bytes(q, v, g, dq, dv), _stream())
     kernels.check_status("crpe_conv_bwd", status)
     kernels.LAUNCHES["crpe_conv_bwd"] += 1
     return dq, dv, total[:49].view(7, 7, c), total[49]

@@ -152,6 +152,48 @@ def test_backward_kernels_match_plain_on_card(c, ch, dtype):
                                  "crpe_conv_bwd": 1}
 
 
+# dw, db: fp32 sums over B·H·W (up to 4096 products here) in another order
+# than the plain version's, relative to their largest value
+CRPE_WEIGHT_REL_TOL = 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 37, 23, 40), (3, 5, 9, 24), (1, 64, 64, 64),
+                                   (2, 9, 7, 12), (2, 11, 19, 6), (1, 13, 17, 5)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_crpe_tiled_kernels_match_plain_on_card(shape, dtype):
+    """C and C′ on ragged tiles and channel slices (H, W not multiples of the
+    8×16 tile, C not of the 32-channel slice), with C = 12, 6 and 5 taking the
+    narrower copy widths; q and v are strided slices of one (B, H, W, 3C)
+    tensor; dw and db are the same bits on a second call."""
+    _need_card()
+    bsz, h, wd, c = shape
+    rs = np.random.RandomState(sum(shape))
+
+    def rand(*s, std=1.0):
+        a = (std * rs.standard_normal(s)).astype(np.float32)
+        return torch.from_numpy(a).to("cuda", dtype)
+
+    qkv = rand(bsz, h, wd, 3 * c)
+    q, v = qkv[..., :c], qkv[..., 2 * c:]
+    w, b, g = rand(7, 7, c, std=(2 / 49) ** 0.5), rand(c, std=0.1), rand(bsz, h, wd, c)
+    kernels.reset_launches()
+    torch.testing.assert_close(dwconv.crpe_conv(q, v, w, b).float(),
+                               dwconv.crpe_conv_ref(q, v, w, b).float(), **GPU_TOL[dtype])
+    got = dwconv._crpe_backward(q, v, w, b, g)
+    again = dwconv._crpe_backward(q, v, w, b, g)
+    torch.cuda.synchronize()
+    want = dwconv.crpe_conv_bwd_ref(q, v, w, b, g)
+    for a, e in zip(got[:2], want[:2]):
+        torch.testing.assert_close(a.float(), e.float(), **GPU_TOL[dtype])
+    for a, e in zip(got[2:], want[2:]):
+        err = (a - e).abs().max().item()
+        assert err <= CRPE_WEIGHT_REL_TOL * e.abs().max().item(), err
+    assert all(torch.equal(a, e) for a, e in zip(got, again))
+    assert _counts(("crpe_conv", "crpe_conv_bwd")) == {"crpe_conv": 1, "crpe_conv_bwd": 2}
+
+
 @pytest.mark.gpu
 def test_dropout_masks_equal_on_card_and_cpu():
     """One generator seed gives the same masks on a card as on the CPU: the

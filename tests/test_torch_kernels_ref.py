@@ -61,12 +61,20 @@ def test_cpe_conv_ref_matches_xla(c):
     np.testing.assert_allclose(dwconv.cpe_conv(tx, tw, tb).numpy(), want, **TOL)
 
 
-@pytest.mark.parametrize("c,ch", STAGE_C_CH)
-def test_crpe_conv_ref_matches_xla(c, ch):
+# (B, H, W, C, ch): the stage widths at 8×8, then ragged shapes that cut the
+# tiled CRPE kernels' 8×16 tiles and 32-channel slices unevenly
+CRPE_CASES = [pytest.param(2, 8, 8, c, ch, id=f"{c}-{ch}") for c, ch in STAGE_C_CH] + [
+    pytest.param(2, 37, 23, 40, 5, id="2x37x23x40"),
+    pytest.param(3, 5, 9, 24, 3, id="3x5x9x24"),
+    pytest.param(1, 64, 64, 64, 8, id="1x64x64x64")]
+
+
+@pytest.mark.parametrize("bsz,h,wd,c,ch", CRPE_CASES)
+def test_crpe_conv_ref_matches_xla(bsz, h, wd, c, ch):
     """CRPE with the 3/5/7 windows over 2/3/3 heads, each assembled into one
     7×7 kernel: the port's ``ConvRelPosEnc.kernel`` against the JAX
     package's zero-embedding (blocks.py ConvRelPosEnc)."""
-    rs = np.random.RandomState(c + 2)
+    rs = np.random.RandomState(c + 2 + h - 8)
     crpe = ConvRelPosEnc(ch, 8)
     jax_w, jax_b = [], []
     with torch.no_grad():
@@ -81,7 +89,7 @@ def test_crpe_conv_ref_matches_xla(c, ch):
             jax_b.append(bk)
     w7 = np.concatenate(jax_w, axis=-1)[:, :, 0]
     b7 = np.concatenate(jax_b)
-    qkv = rs.standard_normal((2, 8, 8, 3 * c)).astype(np.float32)
+    qkv = rs.standard_normal((bsz, h, wd, 3 * c)).astype(np.float32)
     q, v = qkv[..., :c], qkv[..., 2 * c:]
     want = np.asarray(crpe_conv_xla(jnp.asarray(q), jnp.asarray(v),
                                     jnp.asarray(w7), jnp.asarray(b7)))
@@ -92,8 +100,29 @@ def test_crpe_conv_ref_matches_xla(c, ch):
     with torch.no_grad():
         np.testing.assert_allclose(dwconv.crpe_conv_ref(tq, tv, tw, tb).numpy(),
                                    want, **TOL)
-        got = crpe(tq.flatten(1, 2), tv.flatten(1, 2), (8, 8))
+        got = crpe(tq.flatten(1, 2), tv.flatten(1, 2), (h, wd))
     np.testing.assert_allclose(got.numpy().reshape(want.shape), want, **TOL)
+
+
+@pytest.mark.parametrize("dtype,c,offset,want", [
+    (torch.float32, 64, 0, 16), (torch.float32, 6, 0, 8), (torch.float32, 5, 0, 4),
+    (torch.bfloat16, 64, 0, 16), (torch.bfloat16, 12, 0, 8), (torch.bfloat16, 6, 0, 4),
+    (torch.bfloat16, 5, 0, 2), (torch.float32, 64, 1, 4)])
+def test_crpe_copy_width_from_alignment(dtype, c, offset, want):
+    """The tiled CRPE kernels copy the widest of 16/8/4/2 bytes that C, the
+    strides of q and v (slices of one (B, H, W, 3C) projection) and their
+    pointers allow; ``offset`` shifts the projection by one element."""
+    flat = torch.zeros(2 * 5 * 7 * 3 * c + 1, dtype=dtype)
+    qkv = flat[offset:offset + 2 * 5 * 7 * 3 * c].view(2, 5, 7, 3 * c)
+    assert dwconv._copy_bytes(qkv[..., :c], qkv[..., 2 * c:]) == want
+
+
+def test_crpe_weight_tiles():
+    """One partial dw/db row per 8×16 tile (8×8 for images at most 8 wide)."""
+    assert kernels.crpe_weight_tiles(16, 64, 64) == 16 * 8 * 4
+    assert kernels.crpe_weight_tiles(16, 8, 8) == 16
+    assert kernels.crpe_weight_tiles(2, 37, 23) == 2 * 5 * 2
+    assert kernels.crpe_weight_tiles(3, 5, 9) == 3 * 1 * 1
 
 
 def test_cpu_tensors_count_no_launch():
