@@ -19,9 +19,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
             shapes and types, two calls bit-equal, and the same times; the
             library yardstick of CPE/CRPE is cuDNN's backward of their
             ``F.conv2d(groups=C)`` forms (``aten.convolution_backward``);
-   crpe_split C′'s device launches per call (2: the fused tile kernel and
-            the reduce) and device ms per launch by kernel name at each
-            stage shape in fp32 and bf16, from ``torch.profiler``;
+   dwconv_split  B′'s and C′'s device launches per call (2 each: the
+            fused tile kernel and the reduce) and device ms per launch by
+            kernel name at each stage shape in fp32 and bf16, from
+            ``torch.profiler``;
 4. model    the serving entry (``predict.make_forward`` on the full-width
             MDViT at 256², random weights from ``--seed``, 4 domains, mixed
             one-hots) with every launch counter read around one B=16 call;
@@ -46,6 +47,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import itertools
 import json
 import subprocess
 import sys
@@ -117,11 +119,10 @@ SOURCE = {name: "mdvit_tpu_torch/csrc/" + (
     for name in REPLACES}
 # device-kernel names of the port's own kernels, for the profiler's share
 PORT_KERNEL_NAMES = ("factorized_attention_fwd_kernel", "factorized_attention_bwd_kernel",
-                     "dwconv_fwd_kernel", "dwconv_weight_partial_kernel",
-                     "dwconv_weight_reduce_kernel", "crpe_fwd_tiled_kernel",
-                     "crpe_bwd_tiled_kernel")
-# device launches of one C′ call: the fused tile kernel and the reduce
-CRPE_BWD_LAUNCHES = 2
+                     "dwconv_fwd_tiled_kernel", "dwconv_bwd_tiled_kernel",
+                     "dwconv_weight_reduce_kernel")
+# device launches of one B′ or C′ call: the fused tile kernel and the reduce
+DWCONV_BWD_LAUNCHES = 2
 
 # the train step: D domains × B per domain, N images per domain store
 TRAIN_D, TRAIN_B, TRAIN_N = 4, 4, 8
@@ -414,54 +415,58 @@ def phase_backward(seed: int) -> dict:
     return summary
 
 
-def phase_crpe_split(seed: int) -> None:
-    """C′'s launches and device ms per launch at each stage shape; fails
-    unless every call is ``CRPE_BWD_LAUNCHES`` device launches."""
-    bad = [(r["H"], r["dtype"], r["launches_per_call"]) for r in crpe_bwd_split(seed)
-           if r["launches_per_call"] != CRPE_BWD_LAUNCHES]
+def phase_dwconv_split(seed: int) -> None:
+    """B′'s and C′'s launches and device ms per launch at each stage shape;
+    fails unless every call is ``DWCONV_BWD_LAUNCHES`` device launches."""
+    bad = [(r["kernel"], r["H"], r["dtype"], r["launches_per_call"])
+           for r in dwconv_bwd_split(seed) if r["launches_per_call"] != DWCONV_BWD_LAUNCHES]
     if bad:
-        raise RuntimeError(f"C′ calls are not {CRPE_BWD_LAUNCHES} device launches: {bad}")
+        raise RuntimeError(f"B′/C′ calls are not {DWCONV_BWD_LAUNCHES} device launches: {bad}")
 
 
-def crpe_bwd_split(seed: int, reps: int = 10) -> list:
-    """C′'s device launches per call and device ms per launch, by device-kernel
-    name, at each stage shape in fp32 and bf16 (``torch.profiler`` over
-    ``reps`` calls of ``dwconv._crpe_backward`` on the main path's inputs)."""
+def dwconv_bwd_split(seed: int, reps: int = 10) -> list:
+    """B′'s and C′'s device launches per call and device ms per launch, by
+    device-kernel name, at each stage shape in fp32 and bf16
+    (``torch.profiler`` over ``reps`` calls of ``dwconv._cpe_backward`` and
+    ``dwconv._crpe_backward`` on the main path's inputs)."""
     gen = torch.Generator().manual_seed(seed + 11)
     out = []
-    for h, w, c, _ in STAGES:
-        for dtype in (torch.float32, torch.bfloat16):
-            t = _inputs("crpe_conv", h, w, c, dtype, gen)
-            g = torch.randn(BATCH, h, w, c, generator=gen).to("cuda", dtype)
-            args = (t["q"], t["v"], t["w"], t["b"], g)
-            for _ in range(3):
-                dwconv._crpe_backward(*args)
-            torch.cuda.synchronize()
-            # a profiler window now and then records no device events at all
-            # (seen once in ~30 windows on an H100): take the next window
-            for _ in range(3):
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    for _ in range(reps):
-                        dwconv._crpe_backward(*args)
-                    torch.cuda.synchronize()
-                by_name: dict = defaultdict(lambda: [0, 0.0])
-                for e in prof.events():
-                    if (e.device_type == torch.autograd.DeviceType.CUDA
-                            and not getattr(e, "is_user_annotation", False)):
-                        by_name[e.name][0] += 1
-                        by_name[e.name][1] += e.time_range.end - e.time_range.start
-                if by_name:
-                    break
-            rec = {"phase": "crpe_bwd_split", "B": BATCH, "H": h, "W": w, "C": c,
-                   "dtype": str(dtype).replace("torch.", ""),
-                   "launches_per_call": sum(n for n, _ in by_name.values()) / reps,
-                   "ms_per_call": sum(us for _, us in by_name.values()) / reps / 1e3,
-                   "split": [{"name": name[:120], "launches_per_call": n / reps,
-                              "ms_per_launch": us / n / 1e3}
-                             for name, (n, us) in sorted(by_name.items())]}
-            emit(rec)
-            out.append(rec)
-            del t, g, args
+    for kind, (h, w, c, _), dtype in itertools.product(
+            ("cpe_conv_bwd", "crpe_conv_bwd"), STAGES, (torch.float32, torch.bfloat16)):
+        t = _inputs(kind[:-4], h, w, c, dtype, gen)
+        g = torch.randn(BATCH, h, w, c, generator=gen).to("cuda", dtype)
+        if kind == "cpe_conv_bwd":
+            call = lambda: dwconv._cpe_backward(t["x"], t["w"], g)
+        else:
+            call = lambda: dwconv._crpe_backward(t["q"], t["v"], t["w"], t["b"], g)
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        # a profiler window now and then records no device events at all
+        # (seen once in ~30 windows on an H100): take the next window
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    call()
+                torch.cuda.synchronize()
+            by_name: dict = defaultdict(lambda: [0, 0.0])
+            for e in prof.events():
+                if (e.device_type == torch.autograd.DeviceType.CUDA
+                        and not getattr(e, "is_user_annotation", False)):
+                    by_name[e.name][0] += 1
+                    by_name[e.name][1] += e.time_range.end - e.time_range.start
+            if by_name:
+                break
+        rec = {"phase": "dwconv_bwd_split", "kernel": kind, "B": BATCH, "H": h,
+               "W": w, "C": c, "dtype": str(dtype).replace("torch.", ""),
+               "launches_per_call": sum(n for n, _ in by_name.values()) / reps,
+               "ms_per_call": sum(us for _, us in by_name.values()) / reps / 1e3,
+               "split": [{"name": name[:120], "launches_per_call": n / reps,
+                          "ms_per_launch": us / n / 1e3}
+                         for name, (n, us) in sorted(by_name.items())]}
+        emit(rec)
+        out.append(rec)
+        del t, g, call
     return out
 
 
@@ -822,7 +827,7 @@ def main() -> int:
     timed("build", phase_build)
     summary = timed("kernels", phase_kernels, args.seed)
     summary.update(timed("backward", phase_backward, args.seed))
-    timed("crpe_split", phase_crpe_split, args.seed)
+    timed("dwconv_split", phase_dwconv_split, args.seed)
     timed("model", phase_model, args.seed)
     launches = timed("train", phase_train, args.seed)
     line = []

@@ -6,8 +6,8 @@ Counterpart of ``mdvit_tpu/ops/pallas_dwconv.py``:
 * ``crpe_conv(q, v, w, b)`` → ``q · (dwconv₇ₓ₇(v) + b)`` (ConvRelPosEnc)
 
 Stride 1, zero SAME padding, w (K, K, C), b (C,). On a CUDA tensor each
-launches its kernels of ``csrc/dwconv.cu`` (CRPE's tiled: one launch forward,
-a fused tile kernel and a reduce backward); on a CPU tensor it runs its plain
+launches its tiled kernels of ``csrc/dwconv.cu`` (one launch forward, a fused
+tile kernel and a reduce backward); on a CPU tensor it runs its plain
 PyTorch versions (``cpe_conv_ref``/``cpe_conv_bwd_ref``,
 ``crpe_conv_ref``/``crpe_conv_bwd_ref``), which sum the taps in the same
 order in fp32 and round once, as the Pallas kernels do.
@@ -122,10 +122,10 @@ def _weight_scratch(x: torch.Tensor, k: int, tiles: int):
 
 
 def _copy_bytes(*views: torch.Tensor) -> int:
-    """Bytes per halo copy of the tiled CRPE kernels: the widest of 16, 8, 4
-    (and 2 for bf16) that divides every pointer and, in elements, C and each
-    view's pixel and batch strides. The main path's C = 64/128/320/512 with
-    3C-strided q, v takes 16."""
+    """Bytes per halo copy of the tiled kernels: the widest of 16, 8, 4 (and
+    2 for bf16) that divides every pointer and, in elements, C and each
+    view's pixel and batch strides. The main path's C = 64/128/320/512, with
+    contiguous x and 3C-strided q, v, takes 16."""
     item = views[0].element_size()
     c = views[0].shape[3]
     for vec in (16, 8, 4):
@@ -137,7 +137,7 @@ def _copy_bytes(*views: torch.Tensor) -> int:
 
 
 def _check_int32(name, *views):
-    """The tiled CRPE kernels index within one image in 32 bits."""
+    """The tiled kernels index within one image in 32 bits."""
     for t in views:
         if t.shape[1] * t.shape[2] * max(t.stride(2), t.shape[3]) >= 2 ** 31:
             raise ValueError(f"{name}: an image of {tuple(t.shape[1:])} with pixel "
@@ -148,6 +148,7 @@ def _cpe_forward(x, w, b):
     if x.device.type == "cpu":
         return cpe_conv_ref(x, w, b)
     _check_grid("cpe_conv", 3, w, b, x)
+    _check_int32("cpe_conv", x)
     bsz, h, wd, c = x.shape
     out = torch.empty((bsz, h, wd, c), dtype=x.dtype, device=x.device)
     lib = kernels.library("dwconv")
@@ -155,7 +156,7 @@ def _cpe_forward(x, w, b):
         status = lib.mdvit_cpe_conv_fwd(
             kernels.dtype_code(x.dtype), x.data_ptr(), w.data_ptr(),
             b.data_ptr(), out.data_ptr(), bsz, h, wd, c, x.stride(0),
-            x.stride(2), _stream())
+            x.stride(2), _copy_bytes(x, out), _stream())
     kernels.check_status("cpe_conv", status)
     kernels.LAUNCHES["cpe_conv"] += 1
     return out
@@ -166,16 +167,17 @@ def _cpe_backward(x, w, g):
         return cpe_conv_bwd_ref(x, w, g)
     g = g.contiguous()
     _check_grid("cpe_conv_bwd", 3, w, None, x, g)
+    _check_int32("cpe_conv_bwd", x, g)
     bsz, h, wd, c = x.shape
     dx = torch.empty((bsz, h, wd, c), dtype=x.dtype, device=x.device)
-    partial, total = _weight_scratch(x, 3, kernels.dwconv_weight_tiles(bsz * h * wd))
+    partial, total = _weight_scratch(x, 3, kernels.dwconv_weight_tiles(bsz, h, wd))
     lib = kernels.library("dwconv")
     with torch.cuda.device(x.device):
         status = lib.mdvit_cpe_conv_bwd(
             kernels.dtype_code(x.dtype), x.data_ptr(), w.data_ptr(),
             g.data_ptr(), dx.data_ptr(), partial.data_ptr(), total.data_ptr(),
             partial.shape[0], bsz, h, wd, c, x.stride(0), x.stride(2),
-            _stream())
+            _copy_bytes(x, g, dx), _stream())
     kernels.check_status("cpe_conv_bwd", status)
     kernels.LAUNCHES["cpe_conv_bwd"] += 1
     return dx, total[:9].view(3, 3, c), total[9]
@@ -209,7 +211,7 @@ def _crpe_backward(q, v, w, b, g):
     bsz, h, wd, c = q.shape
     dq, dv = (torch.empty((bsz, h, wd, c), dtype=q.dtype, device=q.device)
               for _ in range(2))
-    partial, total = _weight_scratch(q, 7, kernels.crpe_weight_tiles(bsz, h, wd))
+    partial, total = _weight_scratch(q, 7, kernels.dwconv_weight_tiles(bsz, h, wd))
     lib = kernels.library("dwconv")
     with torch.cuda.device(q.device):
         status = lib.mdvit_crpe_conv_bwd(

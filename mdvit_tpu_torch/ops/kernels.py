@@ -39,26 +39,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {"factorized_attention": 0, "cpe_conv": 0, "crpe_conv": 0,
             "factorized_attention_bwd": 0, "cpe_conv_bwd": 0, "crpe_conv_bwd": 0}
 
-# pixels per tile of CPE's dw/db reduction (``kWeightTilePixels`` in dwconv.cu)
-WEIGHT_TILE_PIXELS = 256
-# output rows of a tile of the tiled CRPE kernels (``kTileH`` in dwconv.cu)
-CRPE_TILE_H = 8
+# output rows of a tile of the tiled depthwise-conv kernels (``kTileH`` in dwconv.cu)
+TILE_H = 8
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 BUILD_INFO: dict = {}
 
 
-def dwconv_weight_tiles(pixels: int) -> int:
-    """Tiles of the first pass of a dw/db reduction over ``pixels`` = B·H·W."""
-    return (pixels + WEIGHT_TILE_PIXELS - 1) // WEIGHT_TILE_PIXELS
-
-
-def crpe_weight_tiles(batch: int, height: int, width: int) -> int:
-    """Tiles of the CRPE backward, one partial dw/db row each: B·⌈H/8⌉·⌈W/TW⌉,
-    TW = 16, or 8 for images at most 8 wide (``crpe_tile_w`` in dwconv.cu)."""
+def dwconv_weight_tiles(batch: int, height: int, width: int) -> int:
+    """Tiles of the CPE and CRPE backwards, one partial dw/db row each:
+    B·⌈H/8⌉·⌈W/TW⌉, TW = 16, or 8 for images at most 8 wide (``tile_w`` in
+    dwconv.cu)."""
     tw = 16 if width > 8 else 8
-    return batch * -(-height // CRPE_TILE_H) * -(-width // tw)
+    return batch * -(-height // TILE_H) * -(-width // tw)
 
 
 def reset_launches() -> None:
@@ -154,7 +148,7 @@ _ARGTYPES = {
         + [ctypes.c_longlong] * 2 + [ctypes.c_float, ctypes.c_void_p]),
     "mdvit_cpe_conv_fwd": (
         [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-        + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]),
+        + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_int, ctypes.c_void_p]),
     "mdvit_crpe_conv_fwd": (
         [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
         + [ctypes.c_longlong, ctypes.c_int] * 2 + [ctypes.c_int, ctypes.c_void_p]),
@@ -163,7 +157,7 @@ _ARGTYPES = {
         + [ctypes.c_longlong] * 4 + [ctypes.c_float, ctypes.c_void_p]),
     "mdvit_cpe_conv_bwd": (
         [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-        + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]),
+        + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_int, ctypes.c_void_p]),
     "mdvit_crpe_conv_bwd": (
         [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
         + [ctypes.c_longlong, ctypes.c_int] * 2 + [ctypes.c_int, ctypes.c_void_p]),

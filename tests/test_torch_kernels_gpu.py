@@ -152,21 +152,22 @@ def test_backward_kernels_match_plain_on_card(c, ch, dtype):
                                  "crpe_conv_bwd": 1}
 
 
-# dw, db: fp32 sums over B·H·W (up to 4096 products here) in another order
-# than the plain version's, relative to their largest value
+# dw, db of CPE and CRPE: fp32 sums over B·H·W (up to 9216 products here) in
+# another order than the plain version's, relative to their largest value
 CRPE_WEIGHT_REL_TOL = 1e-4
+# ragged tiles and channel slices (H, W not multiples of the 8×16 tile, C not
+# of the 32-channel slice), C = 12, 6 and 5 taking the narrower copy widths,
+# and 3x64x48 whose 72 tiles the reduce splits between warp rows
+TILED_SHAPES = [(2, 37, 23, 40), (3, 5, 9, 24), (1, 64, 64, 64), (2, 9, 7, 12),
+                (2, 11, 19, 6), (1, 13, 17, 5), (3, 64, 48, 40)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 37, 23, 40), (3, 5, 9, 24), (1, 64, 64, 64),
-                                   (2, 9, 7, 12), (2, 11, 19, 6), (1, 13, 17, 5)],
-                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("shape", TILED_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_crpe_tiled_kernels_match_plain_on_card(shape, dtype):
-    """C and C′ on ragged tiles and channel slices (H, W not multiples of the
-    8×16 tile, C not of the 32-channel slice), with C = 12, 6 and 5 taking the
-    narrower copy widths; q and v are strided slices of one (B, H, W, 3C)
-    tensor; dw and db are the same bits on a second call."""
+    """C and C′ on ``TILED_SHAPES``; q and v are strided slices of one
+    (B, H, W, 3C) tensor; dw and db are the same bits on a second call."""
     _need_card()
     bsz, h, wd, c = shape
     rs = np.random.RandomState(sum(shape))
@@ -192,6 +193,39 @@ def test_crpe_tiled_kernels_match_plain_on_card(shape, dtype):
         assert err <= CRPE_WEIGHT_REL_TOL * e.abs().max().item(), err
     assert all(torch.equal(a, e) for a, e in zip(got, again))
     assert _counts(("crpe_conv", "crpe_conv_bwd")) == {"crpe_conv": 1, "crpe_conv_bwd": 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", TILED_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_cpe_tiled_kernels_match_plain_on_card(shape, dtype):
+    """B and B′ on ``TILED_SHAPES``, with x contiguous and as a strided slice
+    of a (B, H, W, 3C) tensor; dx, dw and db are the same bits on a second
+    call."""
+    _need_card()
+    bsz, h, wd, c = shape
+    rs = np.random.RandomState(sum(shape) + 1)
+
+    def rand(*s, std=1.0):
+        a = (std * rs.standard_normal(s)).astype(np.float32)
+        return torch.from_numpy(a).to("cuda", dtype)
+
+    wide = rand(bsz, h, wd, 3 * c)
+    w, b, g = rand(3, 3, c, std=(2 / 9) ** 0.5), rand(c, std=0.1), rand(bsz, h, wd, c)
+    kernels.reset_launches()
+    for x in (wide[..., c:2 * c].contiguous(), wide[..., c:2 * c]):
+        torch.testing.assert_close(dwconv.cpe_conv(x, w, b).float(),
+                                   dwconv.cpe_conv_ref(x, w, b).float(), **GPU_TOL[dtype])
+        got = dwconv._cpe_backward(x, w, g)
+        again = dwconv._cpe_backward(x, w, g)
+        torch.cuda.synchronize()
+        want = dwconv.cpe_conv_bwd_ref(x, w, g)
+        torch.testing.assert_close(got[0].float(), want[0].float(), **GPU_TOL[dtype])
+        for a, e in zip(got[1:], want[1:]):
+            err = (a - e).abs().max().item()
+            assert err <= CRPE_WEIGHT_REL_TOL * e.abs().max().item(), err
+        assert all(torch.equal(a, e) for a, e in zip(got, again))
+    assert _counts(("cpe_conv", "cpe_conv_bwd")) == {"cpe_conv": 2, "cpe_conv_bwd": 4}
 
 
 @pytest.mark.gpu

@@ -49,10 +49,17 @@ def test_factorized_attention_ref_matches_xla(c, ch):
                                want, **TOL)
 
 
-@pytest.mark.parametrize("c", [c for c, _ in STAGE_C_CH])
-def test_cpe_conv_ref_matches_xla(c):
-    rs = np.random.RandomState(c + 1)
-    x = rs.standard_normal((2, 8, 8, c)).astype(np.float32)
+# (B, H, W, C): the stage widths at 8×8, then ragged shapes that cut the tiled
+# kernels' 8×16 tiles and 32-channel slices unevenly, and C = 12
+CPE_CASES = [pytest.param(2, 8, 8, c, id=str(c)) for c, _ in STAGE_C_CH] + [
+    pytest.param(2, 37, 23, 40, id="2x37x23x40"), pytest.param(3, 5, 9, 24, id="3x5x9x24"),
+    pytest.param(1, 64, 64, 64, id="1x64x64x64"), pytest.param(2, 9, 7, 12, id="2x9x7x12")]
+
+
+@pytest.mark.parametrize("bsz,h,wd,c", CPE_CASES)
+def test_cpe_conv_ref_matches_xla(bsz, h, wd, c):
+    rs = np.random.RandomState(c + 1 + h - 8)
+    x = rs.standard_normal((bsz, h, wd, c)).astype(np.float32)
     w = (rs.standard_normal((3, 3, c)) * (2 / 9) ** 0.5).astype(np.float32)
     b = (0.1 * rs.standard_normal(c)).astype(np.float32)
     want = np.asarray(cpe_conv_xla(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b)))
@@ -61,8 +68,7 @@ def test_cpe_conv_ref_matches_xla(c):
     np.testing.assert_allclose(dwconv.cpe_conv(tx, tw, tb).numpy(), want, **TOL)
 
 
-# (B, H, W, C, ch): the stage widths at 8×8, then ragged shapes that cut the
-# tiled CRPE kernels' 8×16 tiles and 32-channel slices unevenly
+# (B, H, W, C, ch): the stage widths at 8×8, then ragged shapes as CPE's
 CRPE_CASES = [pytest.param(2, 8, 8, c, ch, id=f"{c}-{ch}") for c, ch in STAGE_C_CH] + [
     pytest.param(2, 37, 23, 40, 5, id="2x37x23x40"),
     pytest.param(3, 5, 9, 24, 3, id="3x5x9x24"),
@@ -109,20 +115,30 @@ def test_crpe_conv_ref_matches_xla(bsz, h, wd, c, ch):
     (torch.bfloat16, 64, 0, 16), (torch.bfloat16, 12, 0, 8), (torch.bfloat16, 6, 0, 4),
     (torch.bfloat16, 5, 0, 2), (torch.float32, 64, 1, 4)])
 def test_crpe_copy_width_from_alignment(dtype, c, offset, want):
-    """The tiled CRPE kernels copy the widest of 16/8/4/2 bytes that C, the
-    strides of q and v (slices of one (B, H, W, 3C) projection) and their
-    pointers allow; ``offset`` shifts the projection by one element."""
-    flat = torch.zeros(2 * 5 * 7 * 3 * c + 1, dtype=dtype)
-    qkv = flat[offset:offset + 2 * 5 * 7 * 3 * c].view(2, 5, 7, 3 * c)
+    """The tiled kernels copy the widest of 16/8/4/2 bytes that C, the
+    strides of their views and the pointers allow: CRPE's q and v as slices
+    of one (B, H, W, 3C) projection; CPE's x contiguous and as a slice of a
+    wider tensor, with its contiguous output (and g, dx backward).
+    ``offset`` shifts the projection, and the contiguous x, by one element."""
+    n = 2 * 5 * 7 * 3 * c
+    flat = torch.zeros(n + 1, dtype=dtype)
+    qkv = flat[offset:offset + n].view(2, 5, 7, 3 * c)
     assert dwconv._copy_bytes(qkv[..., :c], qkv[..., 2 * c:]) == want
+    out = torch.zeros(2, 5, 7, c, dtype=dtype)
+    x = flat[offset:offset + n // 3].view(2, 5, 7, c)
+    assert dwconv._copy_bytes(x, out) == want
+    assert dwconv._copy_bytes(qkv[..., c:2 * c], out, out.clone()) == want
 
 
 def test_crpe_weight_tiles():
-    """One partial dw/db row per 8×16 tile (8×8 for images at most 8 wide)."""
-    assert kernels.crpe_weight_tiles(16, 64, 64) == 16 * 8 * 4
-    assert kernels.crpe_weight_tiles(16, 8, 8) == 16
-    assert kernels.crpe_weight_tiles(2, 37, 23) == 2 * 5 * 2
-    assert kernels.crpe_weight_tiles(3, 5, 9) == 3 * 1 * 1
+    """CPE's and CRPE's backwards share one tile counter: one partial dw/db
+    row per 8×16 tile (8×8 for images at most 8 wide), whatever K."""
+    assert kernels.dwconv_weight_tiles(16, 64, 64) == 16 * 8 * 4
+    assert kernels.dwconv_weight_tiles(16, 8, 8) == 16
+    assert kernels.dwconv_weight_tiles(2, 37, 23) == 2 * 5 * 2
+    assert kernels.dwconv_weight_tiles(3, 5, 9) == 3 * 1 * 1
+    assert kernels.dwconv_weight_tiles(2, 9, 7) == 2 * 2 * 1
+    assert kernels.dwconv_weight_tiles(1, 8, 9) == 1 * 1 * 1
 
 
 def test_cpu_tensors_count_no_launch():

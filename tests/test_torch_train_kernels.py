@@ -70,10 +70,17 @@ def test_factorized_attention_bwd_ref(c, ch):
             np.testing.assert_allclose(t.grad.numpy(), b, **TOL)
 
 
-@pytest.mark.parametrize("c", [c for c, _ in STAGE_C_CH])
-def test_cpe_conv_bwd_ref(c):
-    rs = np.random.RandomState(c + 1)
-    x, g = _np(rs, 2, 8, 8, c), _np(rs, 2, 8, 8, c)
+# (B, H, W, C): the stage widths at 8×8, then ragged shapes that cut the
+# tiled kernels' 8×16 tiles and 32-channel slices unevenly, and C = 12
+DWCONV_SHAPES = [pytest.param(2, 8, 8, c, id=str(c)) for c, _ in STAGE_C_CH] + [
+    pytest.param(2, 37, 23, 40, id="2x37x23x40"), pytest.param(3, 5, 9, 24, id="3x5x9x24"),
+    pytest.param(1, 64, 64, 64, id="1x64x64x64"), pytest.param(2, 9, 7, 12, id="2x9x7x12")]
+
+
+@pytest.mark.parametrize("bsz,h,wd,c", DWCONV_SHAPES)
+def test_cpe_conv_bwd_ref(bsz, h, wd, c):
+    rs = np.random.RandomState(c + 1 + h - 8)
+    x, g = _np(rs, bsz, h, wd, c), _np(rs, bsz, h, wd, c)
     w, b = _np(rs, 3, 3, c, std=(2 / 9) ** 0.5), _np(rs, c, std=0.1)
     _, vjp = jax.vjp(cpe_conv_xla, *map(jnp.asarray, (x, w, b)))
     want = [np.asarray(t) for t in vjp(jnp.asarray(g))]
@@ -87,14 +94,7 @@ def test_cpe_conv_bwd_ref(c):
             np.testing.assert_allclose(t.grad.numpy(), e, **tol)
 
 
-# (B, H, W, C): the stage widths at 8×8, then ragged shapes that cut the
-# tiled CRPE kernels' 8×16 tiles and 32-channel slices unevenly, and C = 12
-CRPE_SHAPES = [pytest.param(2, 8, 8, c, id=str(c)) for c, _ in STAGE_C_CH] + [
-    pytest.param(2, 37, 23, 40, id="2x37x23x40"), pytest.param(3, 5, 9, 24, id="3x5x9x24"),
-    pytest.param(1, 64, 64, 64, id="1x64x64x64"), pytest.param(2, 9, 7, 12, id="2x9x7x12")]
-
-
-@pytest.mark.parametrize("bsz,h,wd,c", CRPE_SHAPES)
+@pytest.mark.parametrize("bsz,h,wd,c", DWCONV_SHAPES)
 def test_crpe_conv_bwd_ref(bsz, h, wd, c):
     rs = np.random.RandomState(c + 2 + h - 8)
     qkv = _np(rs, bsz, h, wd, 3 * c)
