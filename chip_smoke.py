@@ -19,10 +19,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
             shapes and types, two calls bit-equal, and the same times; the
             library yardstick of CPE/CRPE is cuDNN's backward of their
             ``F.conv2d(groups=C)`` forms (``aten.convolution_backward``);
-   dwconv_split  B′'s and C′'s device launches per call (2 each: the
-            fused tile kernel and the reduce) and device ms per launch by
-            kernel name at each stage shape in fp32 and bf16, from
-            ``torch.profiler``;
+   bwd_split  A′'s, B′'s and C′'s device launches per call (2 each: A′'s
+            partials and apply kernels; B′'s and C′'s fused tile kernel and
+            reduce) and device ms per launch by kernel name at each stage
+            shape in fp32 and bf16, from ``torch.profiler``;
 4. model    the serving entry (``predict.make_forward`` on the full-width
             MDViT at 256², random weights from ``--seed``, 4 domains, mixed
             one-hots) with every launch counter read around one B=16 call;
@@ -41,6 +41,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
 6. the ``kernels`` line, the card's name and power limit, and last the
    ``{"ok": true, "device": ...}`` line. Each phase prints its seconds.
 
+Every phase runs with TF32 off (``device.no_tf32``), as the entry points
+do, so the direct model calls and cuDNN's library times are full fp32 too.
 It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -60,6 +62,7 @@ import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 from mdvit_tpu_torch.data.preprocess import normalize
+from mdvit_tpu_torch.device import no_tf32
 from mdvit_tpu_torch.models.registry import build_mdvit
 from mdvit_tpu_torch.ops import dwconv, kernels
 from mdvit_tpu_torch.ops import factorized_attention as fa
@@ -118,11 +121,14 @@ SOURCE = {name: "mdvit_tpu_torch/csrc/" + (
     "factorized_attention.cu" if name.startswith("factorized") else "dwconv.cu")
     for name in REPLACES}
 # device-kernel names of the port's own kernels, for the profiler's share
-PORT_KERNEL_NAMES = ("factorized_attention_fwd_kernel", "factorized_attention_bwd_kernel",
+PORT_KERNEL_NAMES = ("factorized_attention_fwd_kernel",
+                     "factorized_attention_bwd_partials_kernel",
+                     "factorized_attention_bwd_apply_kernel",
                      "dwconv_fwd_tiled_kernel", "dwconv_bwd_tiled_kernel",
                      "dwconv_weight_reduce_kernel")
-# device launches of one B′ or C′ call: the fused tile kernel and the reduce
-DWCONV_BWD_LAUNCHES = 2
+# device launches of one A′, B′ or C′ call: A′'s partials and apply kernels,
+# B′'s and C′'s fused tile kernel and reduce
+BWD_LAUNCHES = 2
 
 # the train step: D domains × B per domain, N images per domain store
 TRAIN_D, TRAIN_B, TRAIN_N = 4, 4, 8
@@ -415,36 +421,46 @@ def phase_backward(seed: int) -> dict:
     return summary
 
 
-def phase_dwconv_split(seed: int) -> None:
-    """B′'s and C′'s launches and device ms per launch at each stage shape;
-    fails unless every call is ``DWCONV_BWD_LAUNCHES`` device launches."""
+def phase_bwd_split(seed: int) -> None:
+    """A′'s, B′'s and C′'s launches and device ms per launch at each stage
+    shape; fails unless every call is ``BWD_LAUNCHES`` device launches."""
     bad = [(r["kernel"], r["H"], r["dtype"], r["launches_per_call"])
-           for r in dwconv_bwd_split(seed) if r["launches_per_call"] != DWCONV_BWD_LAUNCHES]
+           for r in bwd_split(seed) if r["launches_per_call"] != BWD_LAUNCHES]
     if bad:
-        raise RuntimeError(f"B′/C′ calls are not {DWCONV_BWD_LAUNCHES} device launches: {bad}")
+        raise RuntimeError(f"backward calls are not {BWD_LAUNCHES} device launches: {bad}")
 
 
-def dwconv_bwd_split(seed: int, reps: int = 10) -> list:
-    """B′'s and C′'s device launches per call and device ms per launch, by
-    device-kernel name, at each stage shape in fp32 and bf16
-    (``torch.profiler`` over ``reps`` calls of ``dwconv._cpe_backward`` and
-    ``dwconv._crpe_backward`` on the main path's inputs)."""
+def bwd_split(seed: int, reps: int = 10) -> list:
+    """A′'s, B′'s and C′'s device launches per call and device ms per launch,
+    by device-kernel name, at each stage shape in fp32 and bf16
+    (``torch.profiler`` over ``reps`` calls of ``fa._backward``,
+    ``dwconv._cpe_backward`` and ``dwconv._crpe_backward`` on the main
+    path's inputs)."""
     gen = torch.Generator().manual_seed(seed + 11)
     out = []
-    for kind, (h, w, c, _), dtype in itertools.product(
-            ("cpe_conv_bwd", "crpe_conv_bwd"), STAGES, (torch.float32, torch.bfloat16)):
+    for kind, (h, w, c, ch), dtype in itertools.product(
+            BACKWARD, STAGES, (torch.float32, torch.bfloat16)):
         t = _inputs(kind[:-4], h, w, c, dtype, gen)
-        g = torch.randn(BATCH, h, w, c, generator=gen).to("cuda", dtype)
-        if kind == "cpe_conv_bwd":
+        if kind == "factorized_attention_bwd":
+            g = torch.randn(BATCH, h * w, c, generator=gen).to("cuda", dtype)
+            call = lambda: fa._backward(t["q"], t["k"], t["v"], g, ch, ch ** -0.5)
+        elif kind == "cpe_conv_bwd":
+            g = torch.randn(BATCH, h, w, c, generator=gen).to("cuda", dtype)
             call = lambda: dwconv._cpe_backward(t["x"], t["w"], g)
         else:
+            g = torch.randn(BATCH, h, w, c, generator=gen).to("cuda", dtype)
             call = lambda: dwconv._crpe_backward(t["q"], t["v"], t["w"], t["b"], g)
         for _ in range(3):
             call()
         torch.cuda.synchronize()
-        # a profiler window now and then records no device events at all
-        # (seen once in ~30 windows on an H100): take the next window
-        for _ in range(3):
+        # a profiler window now and then records no device events, or only
+        # some (on an H100: 2 records of ~170, one of them in 3 windows in a
+        # row): take another window, after a pause, while the count is not a
+        # whole number a call
+        for attempt in range(10):
+            if attempt:
+                time.sleep(0.2)
+                torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(reps):
                     call()
@@ -455,10 +471,12 @@ def dwconv_bwd_split(seed: int, reps: int = 10) -> list:
                         and not getattr(e, "is_user_annotation", False)):
                     by_name[e.name][0] += 1
                     by_name[e.name][1] += e.time_range.end - e.time_range.start
-            if by_name:
+            n_launches = sum(n for n, _ in by_name.values())
+            if n_launches and n_launches % reps == 0:
                 break
-        rec = {"phase": "dwconv_bwd_split", "kernel": kind, "B": BATCH, "H": h,
+        rec = {"phase": "bwd_split", "kernel": kind, "B": BATCH, "H": h,
                "W": w, "C": c, "dtype": str(dtype).replace("torch.", ""),
+               "windows": attempt + 1,
                "launches_per_call": sum(n for n, _ in by_name.values()) / reps,
                "ms_per_call": sum(us for _, us in by_name.values()) / reps / 1e3,
                "split": [{"name": name[:120], "launches_per_call": n / reps,
@@ -808,8 +826,6 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "device": torch.cuda.get_device_name(0),
           "nvidia_smi": smi})
@@ -825,11 +841,12 @@ def main() -> int:
         return out
 
     timed("build", phase_build)
-    summary = timed("kernels", phase_kernels, args.seed)
-    summary.update(timed("backward", phase_backward, args.seed))
-    timed("dwconv_split", phase_dwconv_split, args.seed)
-    timed("model", phase_model, args.seed)
-    launches = timed("train", phase_train, args.seed)
+    with no_tf32():
+        summary = timed("kernels", phase_kernels, args.seed)
+        summary.update(timed("backward", phase_backward, args.seed))
+        timed("bwd_split", phase_bwd_split, args.seed)
+        timed("model", phase_model, args.seed)
+        launches = timed("train", phase_train, args.seed)
     line = []
     for name in REPLACES:
         s = summary[name]

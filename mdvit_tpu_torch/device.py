@@ -1,5 +1,8 @@
-"""Device choice for the port's entry points."""
+"""Device choice and fp32 precision for the port's entry points."""
 from __future__ import annotations
+
+import contextlib
+from typing import Iterator
 
 import torch
 
@@ -12,3 +15,19 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def no_tf32() -> Iterator[None]:
+    """fp32 convolutions (cuDNN) and matrix products (cuBLAS) in full fp32
+    inside, as the reference computes them; the caller's flags come back on
+    exit. PyTorch's default lets cuDNN round fp32 conv inputs to TF32."""
+    conv_tf32 = torch.backends.cudnn.allow_tf32
+    matmul = torch.get_float32_matmul_precision()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv_tf32
+        torch.set_float32_matmul_precision(matmul)

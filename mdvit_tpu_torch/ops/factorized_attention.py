@@ -91,6 +91,8 @@ def _forward(q, k, v, ch, scale):
 
 
 def _backward(q, k, v, g, ch, scale):
+    """Two launches: per-chunk fp32 partials into a workspace, then the apply
+    pass that folds them in a fixed order and writes dq, dk, dv."""
     if q.device.type == "cpu":
         return factorized_attention_bwd_ref(q, k, v, g, ch, scale)
     _check(q, k, v, ch)
@@ -101,13 +103,16 @@ def _backward(q, k, v, g, ch, scale):
     b, n, c = q.shape
     dq, dk, dv = (torch.empty((b, n, c), dtype=q.dtype, device=q.device)
                   for _ in range(3))
+    # every entry is written by the partials launch before the apply reads it
+    ws = torch.empty((b * (c // ch), kernels.attention_chunks(n, ch), 2 * ch + 2 * ch * ch),
+                     dtype=torch.float32, device=q.device)
     lib = kernels.library("factorized_attention")
     with torch.cuda.device(q.device):
         status = lib.mdvit_factorized_attention_bwd(
             kernels.dtype_code(q.dtype), q.data_ptr(), k.data_ptr(),
             v.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, n, c // ch, ch, q.stride(0), q.stride(1),
-            g.stride(0), g.stride(1), float(scale),
+            dv.data_ptr(), ws.data_ptr(), b, n, c // ch, ch, q.stride(0),
+            q.stride(1), g.stride(0), g.stride(1), float(scale),
             torch.cuda.current_stream().cuda_stream)
     kernels.check_status("factorized_attention_bwd", status)
     kernels.LAUNCHES["factorized_attention_bwd"] += 1

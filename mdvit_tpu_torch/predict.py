@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from mdvit_tpu_torch.data.preprocess import normalize, resize_bilinear_np
+from mdvit_tpu_torch.device import no_tf32
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".npy")
 
@@ -72,9 +73,11 @@ def save_mask(path_base: str, mask: np.ndarray, prob: np.ndarray | None) -> None
 
 def make_forward(model: torch.nn.Module) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
     """``(images 0..255 NHWC, onehot) → sigmoid probability maps (B, H, W)``
-    from the primary head, as ``scripts/predict.py:make_forward`` for MDViT."""
+    from the primary head, as ``scripts/predict.py:make_forward`` for MDViT.
+    Runs with TF32 off (``no_tf32``), whatever the caller's flags say."""
 
     @torch.no_grad()
+    @no_tf32()
     def forward(x: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
         out = model(normalize(x), onehot, train=False, aux_mode="none")
         return torch.sigmoid(out["seg"][0].float())[..., 0]

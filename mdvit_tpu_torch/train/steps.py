@@ -22,6 +22,7 @@ from typing import Callable, Sequence
 import torch
 
 from mdvit_tpu_torch.data.loader import eval_transform, gather_batch
+from mdvit_tpu_torch.device import no_tf32
 from mdvit_tpu_torch.train.losses import bce_with_logits, dice_loss
 
 
@@ -66,7 +67,8 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     on the batch that ``indices`` (D, B) selects from the per-domain uint8
     stores ``images``/``masks``. Dropout and stochastic depth draw from a
     ``torch.Generator`` seeded with ``seed``. Metrics are device tensors with
-    the JAX step's names; reading them is the caller's choice."""
+    the JAX step's names; reading them is the caller's choice. The step runs
+    with TF32 off (``no_tf32``), whatever the caller's flags say."""
     named = list(model.named_parameters())
     params = [p for _, p in named]
     masked = [i for i, (n, _) in enumerate(named) if "domain_layer" in n]
@@ -76,6 +78,7 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         return torch.autograd.grad(loss, wrt, retain_graph=retain,
                                    allow_unused=True, materialize_grads=True)
 
+    @no_tf32()
     def step(images: Sequence[torch.Tensor], masks: Sequence[torch.Tensor],
              indices: torch.Tensor) -> dict[str, torch.Tensor]:
         x_raw, m_raw, onehot = gather_batch(images, masks, indices)

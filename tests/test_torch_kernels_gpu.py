@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from mdvit_tpu_torch.device import no_tf32
 from mdvit_tpu_torch.ops import dwconv, kernels
 from mdvit_tpu_torch.ops import factorized_attention as fa
 from mdvit_tpu_torch.ops.layers import dropout2d, drop_path, fast_dropout
@@ -85,14 +86,13 @@ def test_model_forward_on_card_goes_through_the_kernels():
     from mdvit_tpu_torch.models.registry import build_mdvit
 
     _need_card()
-    torch.backends.cudnn.allow_tf32 = False
     model = build_mdvit(img_size=64, num_domains=4, device="cuda",
                         num_layers=(1, 1, 1, 1))
     rs = np.random.RandomState(0)
     x = torch.from_numpy(rs.standard_normal((4, 64, 64, 3)).astype(np.float32)).cuda()
     oh = torch.eye(4, device="cuda")[[1, 3, 0, 2]]
     kernels.reset_launches()
-    with torch.no_grad():
+    with torch.no_grad(), no_tf32():
         got = model(x, oh)["seg"][0]
     torch.cuda.synchronize()
     assert _counts(FORWARD) == {"factorized_attention": 8, "cpe_conv": 8, "crpe_conv": 8}
@@ -100,7 +100,7 @@ def test_model_forward_on_card_goes_through_the_kernels():
     with mock.patch.object(fa, "factorized_attention", fa.factorized_attention_ref), \
             mock.patch.object(dwconv, "cpe_conv", dwconv.cpe_conv_ref), \
             mock.patch.object(dwconv, "crpe_conv", dwconv.crpe_conv_ref), \
-            torch.no_grad():
+            torch.no_grad(), no_tf32():
         want = model(x, oh)["seg"][0]
     # 8 blocks carry each kernel's last-bit fp32 differences; relative to scale
     assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
@@ -150,6 +150,94 @@ def test_backward_kernels_match_plain_on_card(c, ch, dtype):
         torch.testing.assert_close(a.float(), e.float(), **GRAD_TOL[dtype])
     assert _counts(BACKWARD) == {"factorized_attention_bwd": 1, "cpe_conv_bwd": 2,
                                  "crpe_conv_bwd": 1}
+
+
+@pytest.mark.gpu
+def test_fp32_serving_forward_runs_without_tf32_on_card():
+    """With both global TF32 flags on (cuDNN's is on by PyTorch's default),
+    the fp32 forward from ``make_forward`` on the card gives the logits of
+    the same weights on the CPU within 1e-4 of their scale, as
+    ``test_model_forward_on_card_goes_through_the_kernels`` holds kernels to;
+    the same model called directly with TF32 on misses that; and the flags
+    read True again afterwards."""
+    from mdvit_tpu_torch.models.registry import build_mdvit
+    from mdvit_tpu_torch.predict import make_forward
+
+    _need_card()
+    saved = (torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision())
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        kw = dict(img_size=64, num_domains=4, num_layers=(1, 1, 1, 1))
+        card, cpu = build_mdvit(device="cuda", **kw), build_mdvit(device="cpu", **kw)
+        cpu.load_state_dict({k: t.cpu() for k, t in card.state_dict().items()})
+        logits = []
+        for m in (card, cpu):
+            m.register_forward_hook(lambda mod, args, out: logits.append(out["seg"][0]))
+        rs = np.random.RandomState(3)
+        x = torch.from_numpy(rs.uniform(0, 255, (2, 64, 64, 3)).astype(np.float32))
+        oh = torch.eye(4)[[2, 0]]
+        probs = make_forward(card)(x.cuda(), oh.cuda())
+        make_forward(cpu)(x, oh)
+        assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+        got, want = logits[0].cpu(), logits[1]
+        limit = 1e-4 * want.abs().max().item()
+        assert probs.shape == (2, 64, 64) and torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= limit
+        from mdvit_tpu_torch.data.preprocess import normalize
+        with torch.no_grad():
+            tf32 = card(normalize(x.cuda()), oh.cuda(), train=False, aux_mode="none")
+        assert (tf32["seg"][0].cpu() - want).abs().max().item() > limit
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])
+
+
+# The factorized-attention backward's chunked split, (B, N, C, ch, k scale): N
+# ragged against the chunk rows (256, 128, 64, 32 for ch 8, 16, 40, 64), k ×20
+# so that the column maxima fall in different chunks and one in the last,
+# ragged chunk; and N = 4096 at ch 8 with B = 1 (16 chunks)
+ATTN_SPLIT_CASES = [(2, 257, 64, 8, 20.0), (2, 1000, 64, 8, 20.0), (2, 33, 128, 16, 20.0),
+                    (2, 257, 128, 16, 20.0), (2, 1000, 320, 40, 20.0), (2, 33, 512, 64, 20.0),
+                    (2, 1000, 512, 64, 20.0), (1, 4096, 64, 8, 1.0), (1, 4096, 64, 8, 20.0)]
+# relative to each output's largest value. fp32: the kernel sums a column over
+# 64-row groups, then over chunks in order, where cuBLAS's einsum blocks the
+# 4096 tokens another way; both are blocked sums whose rounding grows with the
+# square root of the terms of a block, far below 1e-5 (the CPU test of the
+# same algorithm reads ≤ 1.2e-6 at N = 1000). bf16: both sides compute in fp32
+# and round once, so they differ by at most one rounding step, 2⁻⁸ of a value
+# at most 2⁻⁷ of the largest.
+ATTN_BWD_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7 + 1e-5}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ATTN_SPLIT_CASES, ids=lambda c: "x".join(map(str, c[:4])) + f"k{c[4]:g}")
+def test_attention_bwd_split_matches_plain_on_card(case, dtype):
+    """A′'s partials and apply kernels against the plain backward: q, k, v
+    strided slices of one (B, N, 3C) tensor, g a non-contiguous view, one
+    call counted, the same bits on a second call."""
+    _need_card()
+    bsz, n, c, ch, k_scale = case
+    rs = np.random.RandomState(n + c)
+    qkv = rs.standard_normal((bsz, n, 3 * c)).astype(np.float32)
+    qkv[..., c:2 * c] *= k_scale
+    qkv[:, -1, c + 3] = qkv[:, :, c + 3].max() + 5.0
+    qkv = torch.from_numpy(qkv).to("cuda", dtype)
+    wide = torch.from_numpy(rs.standard_normal((bsz, n, 2 * c)).astype(np.float32))
+    q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+    g = wide.to("cuda", dtype)[..., c:]
+    assert not g.is_contiguous()
+    kernels.reset_launches()
+    got = fa._backward(q, k, v, g, ch, ch ** -0.5)
+    again = fa._backward(q, k, v, g, ch, ch ** -0.5)
+    torch.cuda.synchronize()
+    want = fa.factorized_attention_bwd_ref(q, k, v, g, ch, ch ** -0.5)
+    for a, e in zip(got, want):
+        err = (a.float() - e.float()).abs().max().item()
+        assert err <= ATTN_BWD_REL_TOL[dtype] * e.float().abs().max().item(), err
+    assert all(torch.equal(a, e) for a, e in zip(got, again))
+    assert kernels.LAUNCHES["factorized_attention_bwd"] == 2
 
 
 # dw, db of CPE and CRPE: fp32 sums over B·H·W (up to 9216 products here) in

@@ -18,6 +18,7 @@ import torch
 
 from mdvit_tpu.ops.pallas_attention import factorized_attention_xla
 from mdvit_tpu.ops.pallas_dwconv import cpe_conv_xla, crpe_conv_xla
+from mdvit_tpu_torch.device import no_tf32
 from mdvit_tpu_torch.models.blocks import ConvRelPosEnc
 from mdvit_tpu_torch.ops import dwconv, kernels
 from mdvit_tpu_torch.ops import factorized_attention as fa
@@ -172,3 +173,58 @@ def test_parse_ptxas_report():
     assert kernels.parse_ptxas(log) == [{
         "kernel": "_Z3fooPf", "registers": 40, "smem_bytes": 8448,
         "spill_stores": 4, "spill_loads": 8}]
+
+
+def _tf32_flags():
+    return (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+            torch.get_float32_matmul_precision())
+
+
+def test_no_tf32_turns_tf32_off_and_restores_the_flags():
+    saved = _tf32_flags()
+    try:
+        for conv, matmul in ((True, "high"), (False, "medium"), (True, "highest")):
+            torch.backends.cudnn.allow_tf32 = conv
+            torch.set_float32_matmul_precision(matmul)
+            before = _tf32_flags()
+            with no_tf32():
+                assert _tf32_flags() == (False, False, "highest")
+            assert _tf32_flags() == before
+        with pytest.raises(KeyError), no_tf32():
+            raise KeyError("an error inside")
+        assert _tf32_flags() == before
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[2])
+
+
+def test_entry_points_run_without_tf32():
+    """``make_forward``'s forward and ``make_train_step``'s step run the model
+    with TF32 off while the caller's flags say on, and leave them on."""
+    from mdvit_tpu_torch.models.registry import build_mdvit
+    from mdvit_tpu_torch.predict import make_forward
+    from mdvit_tpu_torch.train.optim import build_optimizer
+    from mdvit_tpu_torch.train.steps import make_train_step
+
+    saved = _tf32_flags()
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        model = build_mdvit(img_size=32, device="cpu", embed_dims=(16, 32, 40, 64),
+                            num_layers=(1, 1, 1, 1))
+        seen = []
+        model.register_forward_pre_hook(lambda mod, args: seen.append(_tf32_flags()))
+        rs = np.random.RandomState(4)
+        make_forward(model)(torch.from_numpy(rs.uniform(0, 255, (2, 32, 32, 3))).float(),
+                            torch.eye(4)[[0, 3]])
+        opt, sched = build_optimizer(model, steps_per_epoch=2)
+        imgs = [torch.from_numpy(rs.randint(0, 256, (2, 32, 32, 3)).astype(np.uint8))
+                for _ in range(4)]
+        masks = [torch.from_numpy(rs.randint(0, 2, (2, 32, 32)).astype(np.uint8))
+                 for _ in range(4)]
+        make_train_step(model, opt, sched, 4)(imgs, masks, torch.tensor([[0, 1]] * 4))
+        assert seen == [(False, False, "highest")] * 2
+        assert _tf32_flags()[:2] == (True, True)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[2])

@@ -1,5 +1,8 @@
 """The port's training pieces below the model, against the JAX package.
 
+* The chunked two-launch algorithm of the factorized-attention backward
+  kernel (partials per token chunk, a fixed-order fold, the apply pass),
+  written out in plain torch, against ``jax.vjp`` of the XLA twin at ragged N.
 * The plain backwards beside the CUDA kernels (``factorized_attention_bwd_ref``,
   ``cpe_conv_bwd_ref``, ``crpe_conv_bwd_ref``) against ``jax.vjp`` of the XLA
   twins at every MDViT stage's (C, ch), against torch autograd of the plain
@@ -68,6 +71,86 @@ def test_factorized_attention_bwd_ref(c, ch):
         fn(tq, tk, tv, ch, scale).backward(torch.from_numpy(g))
         for t, b in zip((tq, tk, tv), want):
             np.testing.assert_allclose(t.grad.numpy(), b, **TOL)
+
+
+def _chunked_attention_bwd(q, k, v, g, ch, scale):
+    """The CUDA backward's two launches in plain torch, fp32: per chunk of
+    ``ATTENTION_CHUNK_ROWS[ch]`` tokens the column max m_s, l_s = Σ exp(k − m_s),
+    T_s = exp(k − m_s)ᵀv and D_s = qᵀg; the fold over chunks in their order
+    (M = max m_s, α_s = exp(m_s − M), L = Σ α_s l_s, T = Σ α_s T_s / L,
+    dT = scale·Σ D_s); then dq = scale·g·Tᵀ, dv = ks·dT and
+    dk = ks ⊙ (v·dTᵀ − inner), inner = Σ_j dT ⊙ T, ks = exp(k − M) / L."""
+    b, n, c = q.shape
+    qf, kf, vf, gf = (t.reshape(b, n, c // ch, ch) for t in (q, k, v, g))
+    rows = kernels.ATTENTION_CHUNK_ROWS[ch]
+    parts = []
+    for n0 in range(0, n, rows):
+        ck = kf[:, n0:n0 + rows]
+        m = ck.amax(dim=1)
+        e = torch.exp(ck - m[:, None])
+        parts.append((m, e.sum(dim=1),
+                      torch.einsum("bnhi,bnhj->bhij", e, vf[:, n0:n0 + rows]),
+                      torch.einsum("bnhi,bnhj->bhij", qf[:, n0:n0 + rows], gf[:, n0:n0 + rows])))
+    assert len(parts) == kernels.attention_chunks(n, ch)
+    mx = torch.stack([p[0] for p in parts]).amax(dim=0)
+    big_l, t, d = 0.0, 0.0, 0.0
+    for m, l, ts, ds in parts:  # s = 0..S-1
+        alpha = torch.exp(m - mx)
+        big_l = big_l + alpha * l
+        t = t + alpha[..., None] * ts
+        d = d + ds
+    inv_l = 1.0 / big_l
+    t = t * inv_l[..., None]
+    dt = scale * d
+    inner = (dt * t).sum(dim=-1)
+    ks = torch.exp(kf - mx[:, None]) * inv_l[:, None]
+    dq = scale * torch.einsum("bnhj,bhij->bnhi", gf, t)
+    dv = torch.einsum("bnhi,bhij->bnhj", ks, dt)
+    dk = ks * (torch.einsum("bnhj,bhij->bnhi", vf, dt) - inner[:, None])
+    return tuple(x.reshape(b, n, c) for x in (dq, dk, dv))
+
+
+# (C, ch, N): N ragged against the chunk rows (256, 128, 64, 32 for ch 8, 16,
+# 40, 64), from one chunk plus one row up to 32 chunks
+CHUNKED_CASES = [(64, 8, 257), (64, 8, 1000), (128, 16, 33), (128, 16, 257),
+                 (320, 40, 1000), (512, 64, 33), (512, 64, 1000)]
+
+
+@pytest.mark.parametrize("c,ch,n", CHUNKED_CASES, ids=lambda x: str(x))
+def test_chunked_attention_bwd_matches_xla(c, ch, n):
+    """k is scaled ×20, so each head's column maxima fall in different chunks
+    and exp(m_s − M) spans many decades, and one column's maximum sits in the
+    last, ragged chunk. fp32 against JAX at ``highest``: sums over up to 1000
+    tokens in another order, so each output is held relative to its largest
+    value."""
+    rs = np.random.RandomState(n + c)
+    q, k, v, g = (_np(rs, 2, n, c) for _ in range(4))
+    k *= 20.0
+    k[:, -1, 3] = k[:, :, 3].max() + 5.0
+    rows = kernels.ATTENTION_CHUNK_ROWS[ch]
+    assert len(np.unique(k.argmax(axis=1) // rows)) > 1 or n <= rows
+    scale = ch ** -0.5
+    _, vjp = jax.vjp(lambda q, k, v: factorized_attention_xla(q, k, v, ch, scale),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = [np.asarray(t) for t in vjp(jnp.asarray(g))]
+    got = _chunked_attention_bwd(*map(torch.from_numpy, (q, k, v, g)), ch, scale)
+    for a, e in zip(got, want):
+        err = np.abs(a.numpy() - e).max()
+        assert err <= 1e-5 * np.abs(e).max(), (err, np.abs(e).max())
+
+
+def test_attention_chunk_rows():
+    """The chunk of each head width holds 2048 to 2560 values an input, in
+    rows a multiple of 4 (the kernels' 4-row register tiles); the chunk count
+    is ⌈N / rows⌉."""
+    assert kernels.ATTENTION_CHUNK_ROWS == {8: 256, 16: 128, 40: 64, 64: 32}
+    for ch, rows in kernels.ATTENTION_CHUNK_ROWS.items():
+        assert 2048 <= rows * ch <= 2560 and rows % 4 == 0
+        assert ch in fa.KERNEL_CH
+    assert [kernels.attention_chunks(n, 8) for n in (1, 256, 257, 4096)] == [1, 1, 2, 16]
+    assert [kernels.attention_chunks(n, 64) for n in (33, 64, 1000)] == [2, 2, 32]
+    assert [kernels.attention_chunks(n, 16) for n in (1024, 33)] == [8, 1]
+    assert kernels.attention_chunks(256, 40) == 4
 
 
 # (B, H, W, C): the stage widths at 8×8, then ragged shapes that cut the
