@@ -14,22 +14,27 @@ Phases, each printing JSON lines; any failure exits non-zero:
             below; then device times (CUDA events around a CUDA-graph replay)
             of the kernel, the plain version and (CPE/CRPE)
             ``F.conv2d(groups=C)`` as a library yardstick, beside the bound,
-            and the kernel's eager time (host launch cost included);
+            and the kernel's eager time (host launch cost included); then A
+            the same way at B=1 (``kernel_b1`` records, outside the per-step
+            sums);
 3. backward each backward kernel against its plain backward at the same
             shapes and types, two calls bit-equal, and the same times; the
             library yardstick of CPE/CRPE is cuDNN's backward of their
             ``F.conv2d(groups=C)`` forms (``aten.convolution_backward``);
-   bwd_split  A′'s, B′'s and C′'s device launches per call (2 each: A′'s
-            partials and apply kernels; B′'s and C′'s fused tile kernel and
-            reduce) and device ms per launch by kernel name at each stage
-            shape in fp32 and bf16, from ``torch.profiler``;
+   split    A's device launches per call at B=16 and B=1, and A′'s, B′'s and
+            C′'s at B=16 (2 each: A's and A′'s partials and apply kernels;
+            B′'s and C′'s fused tile kernel and reduce), and device ms per
+            launch by kernel name at each stage shape in fp32 and bf16, from
+            ``torch.profiler``;
 4. model    the serving entry (``predict.make_forward`` on the full-width
             MDViT at 256², random weights from ``--seed``, 4 domains, mixed
             one-hots) with every launch counter read around one B=16 call;
             the logits through the kernels against the same forward through
             the plain versions; then img/s and latency at B=1 and B=16 in
             fp32 and bf16, and a ``torch.profiler`` window of the same calls
-            for device-busy time, idle share and device ops per forward;
+            for device-busy time, idle share, device ops per forward and A's
+            device ms and share; peak memory after the cuBLAS workspaces
+            that earlier phases left are freed;
 5. train    the 4-domain MKD train step (``train.steps.make_train_step``) on
             the same model, D=4 × B=4 at 256², synthetic uint8 stores from
             ``--seed``: every launch counter read around one step; every
@@ -121,14 +126,17 @@ SOURCE = {name: "mdvit_tpu_torch/csrc/" + (
     "factorized_attention.cu" if name.startswith("factorized") else "dwconv.cu")
     for name in REPLACES}
 # device-kernel names of the port's own kernels, for the profiler's share
-PORT_KERNEL_NAMES = ("factorized_attention_fwd_kernel",
+PORT_KERNEL_NAMES = ("factorized_attention_fwd_partials_kernel",
+                     "factorized_attention_fwd_apply_kernel",
                      "factorized_attention_bwd_partials_kernel",
                      "factorized_attention_bwd_apply_kernel",
                      "dwconv_fwd_tiled_kernel", "dwconv_bwd_tiled_kernel",
                      "dwconv_weight_reduce_kernel")
-# device launches of one A′, B′ or C′ call: A′'s partials and apply kernels,
-# B′'s and C′'s fused tile kernel and reduce
-BWD_LAUNCHES = 2
+# device launches of one A, A′, B′ or C′ call: A's and A′'s partials and
+# apply kernels, B′'s and C′'s fused tile kernel and reduce
+SPLIT_LAUNCHES = 2
+# the serving caller's batch, at which phases 2 and split also time A
+B1 = 1
 
 # the train step: D domains × B per domain, N images per domain store
 TRAIN_D, TRAIN_B, TRAIN_N = 4, 4, 8
@@ -230,19 +238,21 @@ def phase_build() -> None:
 # ----------------------------------------------------------------- phase 2
 
 
-def _inputs(kind: str, h: int, w: int, c: int, dtype, gen) -> dict:
-    """Kernel inputs as the main path gives them: q, k, v are slices of one
-    (B, N, 3C) projection (row stride 3C); CPE's x is a contiguous grid."""
+def _inputs(kind: str, h: int, w: int, c: int, dtype, gen, batch: int | None = None) -> dict:
+    """Kernel inputs as the main path gives them, ``batch`` (default BATCH)
+    images: q, k, v are slices of one (B, N, 3C) projection (row stride 3C);
+    CPE's x is a contiguous grid."""
+    batch = batch or BATCH
     def randn(*shape, std=1.0):
         return (torch.randn(*shape, generator=gen) * std).to("cuda", dtype)
 
     if kind == "factorized_attention":
-        qkv = randn(BATCH, h * w, 3 * c)
+        qkv = randn(batch, h * w, 3 * c)
         return {"q": qkv[..., :c], "k": qkv[..., c:2 * c], "v": qkv[..., 2 * c:]}
     if kind == "cpe_conv":
-        return {"x": randn(BATCH, h, w, c), "w": randn(3, 3, c, std=(2 / 9) ** 0.5),
+        return {"x": randn(batch, h, w, c), "w": randn(3, 3, c, std=(2 / 9) ** 0.5),
                 "b": randn(c, std=0.1)}
-    qkv = randn(BATCH, h, w, 3 * c)
+    qkv = randn(batch, h, w, 3 * c)
     return {"q": qkv[..., :c], "v": qkv[..., 2 * c:],
             "w": randn(7, 7, c, std=(2 / 49) ** 0.5), "b": randn(c, std=0.1)}
 
@@ -319,9 +329,40 @@ def phase_kernels(seed: int) -> dict:
                     failures.append(rec)
                 _add(summary[kind], rec, FWD_CALLS[stage])
                 del t, got
+    failures += [r for r in attention_b1(seed) if not r["ok"]]
     if failures:
         raise RuntimeError(f"{len(failures)} kernel check(s) out of tolerance")
     return summary
+
+
+def attention_b1(seed: int) -> list:
+    """A at B=1 at each stage shape in fp32 and bf16 (``kernel_b1``
+    records): the check against the plain version, device ms of the kernel
+    and of the plain version, and the bound. Uses only the wrapper's public
+    call, so it times any tree's package."""
+    gen = torch.Generator().manual_seed(seed + 3)
+    out = []
+    for (h, w, c, ch), dtype in itertools.product(STAGES, (torch.float32, torch.bfloat16)):
+        q, k, v = _inputs("factorized_attention", h, w, c, dtype, gen, B1).values()
+        run = lambda: fa.factorized_attention(q, k, v, ch, ch ** -0.5)
+        plain = lambda: fa.factorized_attention_ref(q, k, v, ch, ch ** -0.5)
+        got = run()
+        torch.cuda.synchronize()
+        res = compare(got, plain(), dtype)
+        with torch.no_grad():
+            ms = device_ms(run)
+            plain_ms = device_ms(plain)
+        n_el = B1 * h * w * c
+        n_bytes, flops = 4 * n_el * q.element_size(), 4 * n_el * ch
+        b_ms, b_by = bound_ms(n_bytes, flops)
+        rec = {"phase": "kernel_b1", "kernel": "factorized_attention", "B": B1, "H": h,
+               "W": w, "C": c, "ch": ch, "dtype": str(dtype).replace("torch.", ""), **res,
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "roofline_share": b_ms / ms}
+        emit(rec)
+        out.append(rec)
+        del q, k, v, got
+    return out
 
 
 # ----------------------------------------------------------------- phase 3
@@ -421,60 +462,66 @@ def phase_backward(seed: int) -> dict:
     return summary
 
 
-def phase_bwd_split(seed: int) -> None:
-    """A′'s, B′'s and C′'s launches and device ms per launch at each stage
-    shape; fails unless every call is ``BWD_LAUNCHES`` device launches."""
-    bad = [(r["kernel"], r["H"], r["dtype"], r["launches_per_call"])
-           for r in bwd_split(seed) if r["launches_per_call"] != BWD_LAUNCHES]
+def phase_split(seed: int) -> None:
+    """A's launches per call at B=16 and B=1, A′'s, B′'s and C′'s at B=16, and
+    device ms per launch at each stage shape; fails unless every call is
+    ``SPLIT_LAUNCHES`` device launches."""
+    bad = [(r["kernel"], r["B"], r["H"], r["dtype"], r["launches_per_call"])
+           for r in split(seed) if r["launches_per_call"] != SPLIT_LAUNCHES]
     if bad:
-        raise RuntimeError(f"backward calls are not {BWD_LAUNCHES} device launches: {bad}")
+        raise RuntimeError(f"calls are not {SPLIT_LAUNCHES} device launches: {bad}")
 
 
-def bwd_split(seed: int, reps: int = 10) -> list:
-    """A′'s, B′'s and C′'s device launches per call and device ms per launch,
-    by device-kernel name, at each stage shape in fp32 and bf16
-    (``torch.profiler`` over ``reps`` calls of ``fa._backward``,
-    ``dwconv._cpe_backward`` and ``dwconv._crpe_backward`` on the main
-    path's inputs)."""
+def split(seed: int, reps: int = 10) -> list:
+    """Device launches per call and device ms per launch, by device-kernel
+    name, at each stage shape in fp32 and bf16 (``torch.profiler`` over
+    ``reps`` calls of ``fa.factorized_attention`` under ``no_grad`` at B=16
+    and B=1, and of ``fa._backward``, ``dwconv._cpe_backward`` and
+    ``dwconv._crpe_backward`` at B=16, on the main path's inputs)."""
     gen = torch.Generator().manual_seed(seed + 11)
+    kinds = [(FORWARD[0], BATCH), (FORWARD[0], B1), *((kind, BATCH) for kind in BACKWARD)]
     out = []
-    for kind, (h, w, c, ch), dtype in itertools.product(
-            BACKWARD, STAGES, (torch.float32, torch.bfloat16)):
-        t = _inputs(kind[:-4], h, w, c, dtype, gen)
-        if kind == "factorized_attention_bwd":
-            g = torch.randn(BATCH, h * w, c, generator=gen).to("cuda", dtype)
+    for (kind, bsz), (h, w, c, ch), dtype in itertools.product(
+            kinds, STAGES, (torch.float32, torch.bfloat16)):
+        t = _inputs(kind.removesuffix("_bwd"), h, w, c, dtype, gen, bsz)
+        g = None
+        if kind == "factorized_attention":
+            call = lambda: fa.factorized_attention(t["q"], t["k"], t["v"], ch, ch ** -0.5)
+        elif kind == "factorized_attention_bwd":
+            g = torch.randn(bsz, h * w, c, generator=gen).to("cuda", dtype)
             call = lambda: fa._backward(t["q"], t["k"], t["v"], g, ch, ch ** -0.5)
         elif kind == "cpe_conv_bwd":
-            g = torch.randn(BATCH, h, w, c, generator=gen).to("cuda", dtype)
+            g = torch.randn(bsz, h, w, c, generator=gen).to("cuda", dtype)
             call = lambda: dwconv._cpe_backward(t["x"], t["w"], g)
-        else:
-            g = torch.randn(BATCH, h, w, c, generator=gen).to("cuda", dtype)
+        elif kind == "crpe_conv_bwd":
+            g = torch.randn(bsz, h, w, c, generator=gen).to("cuda", dtype)
             call = lambda: dwconv._crpe_backward(t["q"], t["v"], t["w"], t["b"], g)
-        for _ in range(3):
-            call()
-        torch.cuda.synchronize()
-        # a profiler window now and then records no device events, or only
-        # some (on an H100: 2 records of ~170, one of them in 3 windows in a
-        # row): take another window, after a pause, while the count is not a
-        # whole number a call
-        for attempt in range(10):
-            if attempt:
-                time.sleep(0.2)
-                torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    call()
-                torch.cuda.synchronize()
-            by_name: dict = defaultdict(lambda: [0, 0.0])
-            for e in prof.events():
-                if (e.device_type == torch.autograd.DeviceType.CUDA
-                        and not getattr(e, "is_user_annotation", False)):
-                    by_name[e.name][0] += 1
-                    by_name[e.name][1] += e.time_range.end - e.time_range.start
-            n_launches = sum(n for n, _ in by_name.values())
-            if n_launches and n_launches % reps == 0:
-                break
-        rec = {"phase": "bwd_split", "kernel": kind, "B": BATCH, "H": h,
+        with torch.no_grad():
+            for _ in range(3):
+                call()
+            torch.cuda.synchronize()
+            # a profiler window now and then records no device events, or only
+            # some (on an H100: 2 records of ~170, one of them in 3 windows in
+            # a row): take another window, after a pause, while the count is
+            # not a whole number a call
+            for attempt in range(10):
+                if attempt:
+                    time.sleep(0.2)
+                    torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(reps):
+                        call()
+                    torch.cuda.synchronize()
+                by_name: dict = defaultdict(lambda: [0, 0.0])
+                for e in prof.events():
+                    if (e.device_type == torch.autograd.DeviceType.CUDA
+                            and not getattr(e, "is_user_annotation", False)):
+                        by_name[e.name][0] += 1
+                        by_name[e.name][1] += e.time_range.end - e.time_range.start
+                n_launches = sum(n for n, _ in by_name.values())
+                if n_launches and n_launches % reps == 0:
+                    break
+        rec = {"phase": "split", "kernel": kind, "B": bsz, "H": h,
                "W": w, "C": c, "dtype": str(dtype).replace("torch.", ""),
                "windows": attempt + 1,
                "launches_per_call": sum(n for n, _ in by_name.values()) / reps,
@@ -537,10 +584,17 @@ def _time_calls(fn, batch: int, iters: int) -> dict:
             "img_per_s_p50": batch / p50, "iters": iters}
 
 
+def _is_attention_fwd(name: str) -> bool:
+    """A device kernel of A: its partials or its apply kernel."""
+    return any(k in name for k in ("factorized_attention_fwd_partials_kernel",
+                                   "factorized_attention_fwd_apply_kernel"))
+
+
 def _profile_calls(fn, reps: int = 5) -> dict:
     """Device work of ``reps`` calls under ``torch.profiler``: busy time (the
     union of device-op intervals) per call, device ops (kernels, copies,
-    memsets) per call, the port kernels' share of device time, top ops."""
+    memsets) per call, the port kernels' share of device time, A's device ms
+    per call and share, top ops."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
@@ -566,9 +620,11 @@ def _profile_calls(fn, reps: int = 5) -> dict:
         by_name[e.name] += e.time_range.end - e.time_range.start
     total = sum(by_name.values())
     ours = sum(t for n, t in by_name.items() if any(k in n for k in PORT_KERNEL_NAMES))
+    attn = sum(t for n, t in by_name.items() if _is_attention_fwd(n))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {"device_busy_ms": busy / reps / 1e3, "device_ops_per_call": len(ops) / reps,
             "port_kernels_share": ours / total,
+            "attention_fwd_ms_per_call": attn / reps / 1e3, "attention_fwd_share": attn / total,
             "top": [{"name": n[:80], "ms_per_call": t / reps / 1e3} for n, t in top]}
 
 
@@ -631,18 +687,38 @@ def phase_model(seed: int) -> dict:
     del l16, logits, x
 
     for name, m in (("float32", model), ("bfloat16", model_bf16)):
-        fwd = make_forward(m)
         for batch in (1, BATCH):
-            images_b, onehot_b = _requests(batch, seed)
-            torch.cuda.reset_peak_memory_stats()
-            call = lambda: fwd(images_b, onehot_b)
-            t = _time_calls(call, batch, iters=50 if batch == 1 else 30)
-            peak = torch.cuda.max_memory_allocated()
-            p = _profile_calls(call)
-            emit({"phase": "serving", "dtype": name, "B": batch, "img": IMG, **t,
-                  "peak_mem_bytes": peak, **p,
-                  "idle_share": 1 - p["device_busy_ms"] / t["latency_ms_mean"]})
+            emit(serving(m, name, batch, seed))
     return launches
+
+
+def _reset_peak() -> int:
+    """Free the cuBLAS workspaces that earlier phases left allocated, one for
+    each stream a product ran on (``device_ms`` takes a side stream from the
+    pool each call), then reset the peak to what is allocated now: the peak
+    read after it counts the live tensors and the measured calls' own
+    workspaces, not the process's history. Returns the bytes the clear freed."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch._C._cuda_clearCublasWorkspaces()
+    freed = before - torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    return freed
+
+
+def serving(model, dtype_name: str, batch: int, seed: int) -> dict:
+    """One ``serving`` record: latency and img/s of ``make_forward(model)`` at
+    ``batch``, its peak memory, and a profiler window of the same calls."""
+    fwd = make_forward(model)
+    images, onehot = _requests(batch, seed)
+    freed = _reset_peak()
+    call = lambda: fwd(images, onehot)
+    t = _time_calls(call, batch, iters=50 if batch == 1 else 30)
+    peak = torch.cuda.max_memory_allocated()
+    p = _profile_calls(call)
+    return {"phase": "serving", "dtype": dtype_name, "B": batch, "img": IMG, **t,
+            "peak_mem_bytes": peak, "cublas_workspaces_freed_bytes": freed, **p,
+            "idle_share": 1 - p["device_busy_ms"] / t["latency_ms_mean"]}
 
 
 # ----------------------------------------------------------------- phase 5
@@ -799,7 +875,7 @@ def phase_train(seed: int) -> dict:
 
     for name, train_step in (("float32", step), ("bfloat16", step16)):
         call = lambda: train_step(images, masks, indices)
-        torch.cuda.reset_peak_memory_stats()
+        freed = _reset_peak()
         t = _time_calls(call, batch, iters=10)
         peak = torch.cuda.max_memory_allocated()
         p = _profile_calls(call, reps=3)
@@ -807,7 +883,7 @@ def phase_train(seed: int) -> dict:
               "img": IMG, "step_ms_mean": t["latency_ms_mean"],
               "step_ms_p50": t["latency_ms_p50"], "img_per_s": t["img_per_s"],
               "img_per_s_p50": t["img_per_s_p50"], "iters": t["iters"],
-              "peak_mem_bytes": peak, **p,
+              "peak_mem_bytes": peak, "cublas_workspaces_freed_bytes": freed, **p,
               "idle_share": 1 - p["device_busy_ms"] / t["latency_ms_mean"]})
     return launches
 
@@ -844,7 +920,7 @@ def main() -> int:
     with no_tf32():
         summary = timed("kernels", phase_kernels, args.seed)
         summary.update(timed("backward", phase_backward, args.seed))
-        timed("bwd_split", phase_bwd_split, args.seed)
+        timed("split", phase_split, args.seed)
         timed("model", phase_model, args.seed)
         launches = timed("train", phase_train, args.seed)
     line = []

@@ -73,18 +73,33 @@ def _check(q, k, v, ch):
                          "stride and equal strides")
 
 
+def _workspace(lib, q, ch, grad: bool) -> torch.Tensor:
+    """The fp32 workspace of one call's partials, in the size the library
+    gives for its chunking. Every entry is written by the partials launch
+    before the apply reads it, so nothing is zeroed."""
+    b, n, c = q.shape
+    per_head = lib.mdvit_factorized_attention_workspace(n, ch, int(grad))
+    if per_head <= 0:
+        raise RuntimeError(f"factorized_attention: no workspace size for N={n}, ch={ch}")
+    return torch.empty((b * (c // ch), per_head), dtype=torch.float32, device=q.device)
+
+
 def _forward(q, k, v, ch, scale):
+    """Two launches: per-chunk fp32 partials of k and v into a workspace, then
+    the apply pass that folds them in a fixed order and writes scale·q·T."""
     if q.device.type == "cpu":
         return factorized_attention_ref(q, k, v, ch, scale)
     _check(q, k, v, ch)
     b, n, c = q.shape
     out = torch.empty((b, n, c), dtype=q.dtype, device=q.device)
     lib = kernels.library("factorized_attention")
+    ws = _workspace(lib, q, ch, grad=False)
     with torch.cuda.device(q.device):
         status = lib.mdvit_factorized_attention_fwd(
             kernels.dtype_code(q.dtype), q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), b, n, c // ch, ch, q.stride(0),
-            q.stride(1), float(scale), torch.cuda.current_stream().cuda_stream)
+            v.data_ptr(), out.data_ptr(), ws.data_ptr(), b, n, c // ch, ch,
+            q.stride(0), q.stride(1), float(scale),
+            torch.cuda.current_stream().cuda_stream)
     kernels.check_status("factorized_attention", status)
     kernels.LAUNCHES["factorized_attention"] += 1
     return out
@@ -103,10 +118,8 @@ def _backward(q, k, v, g, ch, scale):
     b, n, c = q.shape
     dq, dk, dv = (torch.empty((b, n, c), dtype=q.dtype, device=q.device)
                   for _ in range(3))
-    # every entry is written by the partials launch before the apply reads it
-    ws = torch.empty((b * (c // ch), kernels.attention_chunks(n, ch), 2 * ch + 2 * ch * ch),
-                     dtype=torch.float32, device=q.device)
     lib = kernels.library("factorized_attention")
+    ws = _workspace(lib, q, ch, grad=True)
     with torch.cuda.device(q.device):
         status = lib.mdvit_factorized_attention_bwd(
             kernels.dtype_code(q.dtype), q.data_ptr(), k.data_ptr(),

@@ -42,10 +42,6 @@ LAUNCHES = {"factorized_attention": 0, "cpe_conv": 0, "crpe_conv": 0,
 # output rows of a tile of the tiled depthwise-conv kernels (``kTileH`` in dwconv.cu)
 TILE_H = 8
 
-# token rows of a chunk of the factorized-attention backward, by head width
-# (``AttnBwd<CH>::kRows`` in factorized_attention.cu): ~2048 values an input
-ATTENTION_CHUNK_ROWS = {8: 256, 16: 128, 40: 64, 64: 32}
-
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 BUILD_INFO: dict = {}
@@ -57,13 +53,6 @@ def dwconv_weight_tiles(batch: int, height: int, width: int) -> int:
     dwconv.cu)."""
     tw = 16 if width > 8 else 8
     return batch * -(-height // TILE_H) * -(-width // tw)
-
-
-def attention_chunks(n_tok: int, ch: int) -> int:
-    """Token chunks of one head in the factorized-attention backward,
-    ⌈N / R⌉ with R = ``ATTENTION_CHUNK_ROWS[ch]``: its partials launch writes
-    2·ch + 2·ch² fp32 values per (batch element, head, chunk)."""
-    return -(-n_tok // ATTENTION_CHUNK_ROWS[ch])
 
 
 def reset_launches() -> None:
@@ -155,7 +144,7 @@ def build() -> dict:
 
 _ARGTYPES = {
     "mdvit_factorized_attention_fwd": (
-        [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+        [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
         + [ctypes.c_longlong] * 2 + [ctypes.c_float, ctypes.c_void_p]),
     "mdvit_cpe_conv_fwd": (
         [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
@@ -166,6 +155,7 @@ _ARGTYPES = {
     "mdvit_factorized_attention_bwd": (
         [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
         + [ctypes.c_longlong] * 4 + [ctypes.c_float, ctypes.c_void_p]),
+    "mdvit_factorized_attention_workspace": [ctypes.c_int] * 3,
     "mdvit_cpe_conv_bwd": (
         [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
         + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_int, ctypes.c_void_p]),

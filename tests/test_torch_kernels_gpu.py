@@ -193,10 +193,20 @@ def test_fp32_serving_forward_runs_without_tf32_on_card():
         torch.set_float32_matmul_precision(saved[1])
 
 
-# The factorized-attention backward's chunked split, (B, N, C, ch, k scale): N
-# ragged against the chunk rows (256, 128, 64, 32 for ch 8, 16, 40, 64), k ×20
-# so that the column maxima fall in different chunks and one in the last,
-# ragged chunk; and N = 4096 at ch 8 with B = 1 (16 chunks)
+# token rows of a chunk of the factorized-attention kernels by head width, as
+# ``AttnChunk<CH, kGrad>::kRows`` in factorized_attention.cu cuts them: the
+# backward's, and the forward's (it stages two inputs, not four, and takes
+# twice the rows at ch 64). The library sizes the workspace itself
+# (``mdvit_factorized_attention_workspace``); these set the chunks of the
+# plain-torch emulations in the CPU tests, and
+# ``test_attention_workspace_matches_chunk_rows_on_card`` holds them to it.
+ATTN_CHUNK_ROWS = {8: 256, 16: 128, 40: 64, 64: 32}
+ATTN_FWD_CHUNK_ROWS = {8: 256, 16: 128, 40: 64, 64: 64}
+# The factorized-attention kernels' chunked split, (B, N, C, ch, k scale): N
+# ragged against the chunk rows (``ATTN_CHUNK_ROWS``, ``ATTN_FWD_CHUNK_ROWS``),
+# k ×20 so that the column maxima fall in different
+# chunks and one in the last, ragged chunk; and N = 4096 at ch 8 with B = 1
+# (16 chunks)
 ATTN_SPLIT_CASES = [(2, 257, 64, 8, 20.0), (2, 1000, 64, 8, 20.0), (2, 33, 128, 16, 20.0),
                     (2, 257, 128, 16, 20.0), (2, 1000, 320, 40, 20.0), (2, 33, 512, 64, 20.0),
                     (2, 1000, 512, 64, 20.0), (1, 4096, 64, 8, 1.0), (1, 4096, 64, 8, 20.0)]
@@ -238,6 +248,53 @@ def test_attention_bwd_split_matches_plain_on_card(case, dtype):
         assert err <= ATTN_BWD_REL_TOL[dtype] * e.float().abs().max().item(), err
     assert all(torch.equal(a, e) for a, e in zip(got, again))
     assert kernels.LAUNCHES["factorized_attention_bwd"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ATTN_SPLIT_CASES, ids=lambda c: "x".join(map(str, c[:4])) + f"k{c[4]:g}")
+def test_attention_fwd_split_matches_plain_on_card(case, dtype):
+    """A's partials and apply kernels against the plain forward on
+    ``ATTN_SPLIT_CASES``: q, k, v strided slices of one (B, N, 3C) tensor,
+    one call counted, the same bits on a second call. The tolerance is A′'s
+    (``ATTN_BWD_REL_TOL``), for the same reason: the kernel sums a column over
+    row groups, then over chunks in order, where the plain version's einsum
+    blocks the tokens another way; in bf16 both round one fp32 value once."""
+    _need_card()
+    bsz, n, c, ch, k_scale = case
+    rs = np.random.RandomState(n + c + 1)
+    qkv = rs.standard_normal((bsz, n, 3 * c)).astype(np.float32)
+    qkv[..., c:2 * c] *= k_scale
+    qkv[:, -1, c + 3] = qkv[:, :, c + 3].max() + 5.0
+    qkv = torch.from_numpy(qkv).to("cuda", dtype)
+    q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+    kernels.reset_launches()
+    with torch.no_grad():
+        got = fa.factorized_attention(q, k, v, ch, ch ** -0.5)
+        count = kernels.LAUNCHES["factorized_attention"]
+        again = fa.factorized_attention(q, k, v, ch, ch ** -0.5)
+    torch.cuda.synchronize()
+    want = fa.factorized_attention_ref(q, k, v, ch, ch ** -0.5)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= ATTN_BWD_REL_TOL[dtype] * want.float().abs().max().item(), err
+    assert got.dtype == dtype and got.is_contiguous() and torch.equal(got, again)
+    assert count == 1
+
+
+@pytest.mark.gpu
+def test_attention_workspace_matches_chunk_rows_on_card():
+    """The library's workspace floats per (batch element, head): ⌈N / rows⌉
+    chunks of 2·ch + ch² (forward) or 2·ch + 2·ch² (backward), with the rows
+    of ``ATTN_FWD_CHUNK_ROWS`` and ``ATTN_CHUNK_ROWS``; -1 for a head width
+    the kernels are not built for."""
+    _need_card()
+    lib = kernels.library("factorized_attention")
+    for grad, table in ((0, ATTN_FWD_CHUNK_ROWS), (1, ATTN_CHUNK_ROWS)):
+        for ch, rows in table.items():
+            for n in (1, 33, 64, 256, 257, 1000, 4096):
+                want = -(-n // rows) * (2 * ch + (1 + grad) * ch * ch)
+                assert lib.mdvit_factorized_attention_workspace(n, ch, grad) == want
+        assert lib.mdvit_factorized_attention_workspace(64, 12, grad) == -1
 
 
 # dw, db of CPE and CRPE: fp32 sums over B·H·W (up to 9216 products here) in

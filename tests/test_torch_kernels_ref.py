@@ -4,8 +4,11 @@
 plain versions beside the CUDA kernels) against ``factorized_attention_xla``,
 ``cpe_conv_xla`` and ``crpe_conv_xla`` at every MDViT stage's (C, ch), fp32,
 inputs from a seeded numpy RandomState. On the CPU each kernel wrapper runs
-its plain version and counts no launch. The CUDA kernels themselves are
-held against the plain versions in ``test_torch_kernels_gpu.py``.
+its plain version and counts no launch. The factorized-attention forward's
+two-launch algorithm (chunk partials, a fixed-order fold, then scale·q·T) is
+written out in plain torch and held against the XLA twin at ragged N. The
+CUDA kernels themselves are held against the plain versions in
+``test_torch_kernels_gpu.py``.
 """
 import os
 import subprocess
@@ -22,6 +25,8 @@ from mdvit_tpu_torch.device import no_tf32
 from mdvit_tpu_torch.models.blocks import ConvRelPosEnc
 from mdvit_tpu_torch.ops import dwconv, kernels
 from mdvit_tpu_torch.ops import factorized_attention as fa
+from tests.test_torch_kernels_gpu import ATTN_FWD_CHUNK_ROWS
+from tests.test_torch_train_kernels import CHUNKED_CASES, _chunk_partials, _fold_chunks
 
 torch.set_num_threads(2)
 
@@ -48,6 +53,36 @@ def test_factorized_attention_ref_matches_xla(c, ch):
                                want, **TOL)
     np.testing.assert_allclose(fa.factorized_attention(q, k, v, ch, scale).numpy(),
                                want, **TOL)
+
+
+def _chunked_attention_fwd(q, k, v, ch, scale):
+    """The CUDA forward's two launches in plain torch, fp32: the partials of k
+    and v per chunk of ``ATTN_FWD_CHUNK_ROWS[ch]`` tokens, the fold over
+    the chunks in their order, then out = scale·q·T."""
+    b, n, c = q.shape
+    qf, kf, vf = (t.reshape(b, n, c // ch, ch) for t in (q, k, v))
+    t = _fold_chunks(_chunk_partials(kf, vf, ATTN_FWD_CHUNK_ROWS[ch]))[2]
+    return (scale * torch.einsum("bnhi,bhij->bnhj", qf, t)).reshape(b, n, c)
+
+
+@pytest.mark.parametrize("c,ch,n", CHUNKED_CASES, ids=lambda x: str(x))
+def test_chunked_attention_fwd_matches_xla(c, ch, n):
+    """k is scaled ×20, so each head's column maxima fall in different chunks
+    and exp(m_s − M) spans many decades, and one column's maximum sits in the
+    last, ragged chunk. fp32 against JAX at ``highest``: sums over up to 1000
+    tokens in another order, so the output is held relative to its largest
+    value."""
+    rs = np.random.RandomState(n + c + 1)
+    q, k, v = (rs.standard_normal((2, n, c)).astype(np.float32) for _ in range(3))
+    k *= 20.0
+    k[:, -1, 3] = k[:, :, 3].max() + 5.0
+    rows = ATTN_FWD_CHUNK_ROWS[ch]
+    assert len(np.unique(k.argmax(axis=1) // rows)) > 1 or n <= rows
+    scale = ch ** -0.5
+    want = np.asarray(factorized_attention_xla(*map(jnp.asarray, (q, k, v)), ch, scale))
+    got = _chunked_attention_fwd(*map(torch.from_numpy, (q, k, v)), ch, scale).numpy()
+    err = np.abs(got - want).max()
+    assert err <= 1e-5 * np.abs(want).max(), (err, np.abs(want).max())
 
 
 # (B, H, W, C): the stage widths at 8×8, then ragged shapes that cut the tiled

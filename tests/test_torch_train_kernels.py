@@ -2,7 +2,8 @@
 
 * The chunked two-launch algorithm of the factorized-attention backward
   kernel (partials per token chunk, a fixed-order fold, the apply pass),
-  written out in plain torch, against ``jax.vjp`` of the XLA twin at ragged N.
+  written out in plain torch, against ``jax.vjp`` of the XLA twin at ragged N
+  (the forward's, on the same helpers, is in ``test_torch_kernels_ref.py``).
 * The plain backwards beside the CUDA kernels (``factorized_attention_bwd_ref``,
   ``cpe_conv_bwd_ref``, ``crpe_conv_bwd_ref``) against ``jax.vjp`` of the XLA
   twins at every MDViT stage's (C, ch), against torch autograd of the plain
@@ -35,6 +36,7 @@ from mdvit_tpu_torch.ops.layers import (draw_seed, dropout2d, drop_path, fast_dr
                                          fast_uniform, hash_u32)
 from mdvit_tpu_torch.ops.norm import DomainBatchNorm
 from mdvit_tpu_torch.train.optim import build_optimizer
+from tests.test_torch_kernels_gpu import ATTN_CHUNK_ROWS, ATTN_FWD_CHUNK_ROWS
 
 torch.set_num_threads(2)
 
@@ -73,34 +75,47 @@ def test_factorized_attention_bwd_ref(c, ch):
             np.testing.assert_allclose(t.grad.numpy(), b, **TOL)
 
 
+def _chunk_partials(kf, vf, rows):
+    """The partials launch in plain torch, fp32, for (B, N, heads, ch) k and
+    v: per chunk of ``rows`` tokens, in order, the column max m_s,
+    l_s = Σ exp(k − m_s) and T_s = exp(k − m_s)ᵀv."""
+    parts = []
+    for n0 in range(0, kf.shape[1], rows):
+        ck = kf[:, n0:n0 + rows]
+        m = ck.amax(dim=1)
+        e = torch.exp(ck - m[:, None])
+        parts.append((m, e.sum(dim=1), torch.einsum("bnhi,bnhj->bhij", e, vf[:, n0:n0 + rows])))
+    return parts
+
+
+def _fold_chunks(parts):
+    """The applies' fold (``fold_chunks``), over the chunks in their order:
+    M = max m_s, α_s = exp(m_s − M), L = Σ α_s l_s, T = Σ α_s T_s / L.
+    Returns M, 1 / L and T."""
+    mx = torch.stack([p[0] for p in parts]).amax(dim=0)
+    big_l, t = 0.0, 0.0
+    for m, l, ts in parts:  # s = 0..S-1
+        alpha = torch.exp(m - mx)
+        big_l = big_l + alpha * l
+        t = t + alpha[..., None] * ts
+    inv_l = 1.0 / big_l
+    return mx, inv_l, t * inv_l[..., None]
+
+
 def _chunked_attention_bwd(q, k, v, g, ch, scale):
     """The CUDA backward's two launches in plain torch, fp32: per chunk of
-    ``ATTENTION_CHUNK_ROWS[ch]`` tokens the column max m_s, l_s = Σ exp(k − m_s),
-    T_s = exp(k − m_s)ᵀv and D_s = qᵀg; the fold over chunks in their order
-    (M = max m_s, α_s = exp(m_s − M), L = Σ α_s l_s, T = Σ α_s T_s / L,
+    ``ATTN_CHUNK_ROWS[ch]`` tokens the partials (``_chunk_partials``) and
+    D_s = qᵀg; the fold over chunks in their order (``_fold_chunks``, and
     dT = scale·Σ D_s); then dq = scale·g·Tᵀ, dv = ks·dT and
     dk = ks ⊙ (v·dTᵀ − inner), inner = Σ_j dT ⊙ T, ks = exp(k − M) / L."""
     b, n, c = q.shape
     qf, kf, vf, gf = (t.reshape(b, n, c // ch, ch) for t in (q, k, v, g))
-    rows = kernels.ATTENTION_CHUNK_ROWS[ch]
-    parts = []
-    for n0 in range(0, n, rows):
-        ck = kf[:, n0:n0 + rows]
-        m = ck.amax(dim=1)
-        e = torch.exp(ck - m[:, None])
-        parts.append((m, e.sum(dim=1),
-                      torch.einsum("bnhi,bnhj->bhij", e, vf[:, n0:n0 + rows]),
-                      torch.einsum("bnhi,bnhj->bhij", qf[:, n0:n0 + rows], gf[:, n0:n0 + rows])))
-    assert len(parts) == kernels.attention_chunks(n, ch)
-    mx = torch.stack([p[0] for p in parts]).amax(dim=0)
-    big_l, t, d = 0.0, 0.0, 0.0
-    for m, l, ts, ds in parts:  # s = 0..S-1
-        alpha = torch.exp(m - mx)
-        big_l = big_l + alpha * l
-        t = t + alpha[..., None] * ts
-        d = d + ds
-    inv_l = 1.0 / big_l
-    t = t * inv_l[..., None]
+    rows = ATTN_CHUNK_ROWS[ch]
+    parts = _chunk_partials(kf, vf, rows)
+    mx, inv_l, t = _fold_chunks(parts)
+    d = 0.0
+    for n0 in range(0, n, rows):  # D_s, s = 0..S-1
+        d = d + torch.einsum("bnhi,bnhj->bhij", qf[:, n0:n0 + rows], gf[:, n0:n0 + rows])
     dt = scale * d
     inner = (dt * t).sum(dim=-1)
     ks = torch.exp(kf - mx[:, None]) * inv_l[:, None]
@@ -111,7 +126,8 @@ def _chunked_attention_bwd(q, k, v, g, ch, scale):
 
 
 # (C, ch, N): N ragged against the chunk rows (256, 128, 64, 32 for ch 8, 16,
-# 40, 64), from one chunk plus one row up to 32 chunks
+# 40, 64; the forward's 64 at ch 64), from one chunk plus one row up to 32
+# chunks
 CHUNKED_CASES = [(64, 8, 257), (64, 8, 1000), (128, 16, 33), (128, 16, 257),
                  (320, 40, 1000), (512, 64, 33), (512, 64, 1000)]
 
@@ -127,7 +143,7 @@ def test_chunked_attention_bwd_matches_xla(c, ch, n):
     q, k, v, g = (_np(rs, 2, n, c) for _ in range(4))
     k *= 20.0
     k[:, -1, 3] = k[:, :, 3].max() + 5.0
-    rows = kernels.ATTENTION_CHUNK_ROWS[ch]
+    rows = ATTN_CHUNK_ROWS[ch]
     assert len(np.unique(k.argmax(axis=1) // rows)) > 1 or n <= rows
     scale = ch ** -0.5
     _, vjp = jax.vjp(lambda q, k, v: factorized_attention_xla(q, k, v, ch, scale),
@@ -140,17 +156,29 @@ def test_chunked_attention_bwd_matches_xla(c, ch, n):
 
 
 def test_attention_chunk_rows():
-    """The chunk of each head width holds 2048 to 2560 values an input, in
-    rows a multiple of 4 (the kernels' 4-row register tiles); the chunk count
-    is ⌈N / rows⌉."""
-    assert kernels.ATTENTION_CHUNK_ROWS == {8: 256, 16: 128, 40: 64, 64: 32}
-    for ch, rows in kernels.ATTENTION_CHUNK_ROWS.items():
+    """The backward's chunk of each head width holds 2048 to 2560 values an
+    input, the forward's the same but at ch 64 twice that (it stages two
+    inputs, not four), in rows a multiple of 4 (the kernels' 4-row register
+    tiles), for every head width the kernels are built for; the emulation
+    cuts N tokens into ⌈N / rows⌉ chunks."""
+    assert ATTN_CHUNK_ROWS == {8: 256, 16: 128, 40: 64, 64: 32}
+    assert ATTN_FWD_CHUNK_ROWS == {8: 256, 16: 128, 40: 64, 64: 64}
+    assert sorted(ATTN_CHUNK_ROWS) == sorted(fa.KERNEL_CH)
+    for ch, rows in ATTN_CHUNK_ROWS.items():
         assert 2048 <= rows * ch <= 2560 and rows % 4 == 0
-        assert ch in fa.KERNEL_CH
-    assert [kernels.attention_chunks(n, 8) for n in (1, 256, 257, 4096)] == [1, 1, 2, 16]
-    assert [kernels.attention_chunks(n, 64) for n in (33, 64, 1000)] == [2, 2, 32]
-    assert [kernels.attention_chunks(n, 16) for n in (1024, 33)] == [8, 1]
-    assert kernels.attention_chunks(256, 40) == 4
+        fwd = ATTN_FWD_CHUNK_ROWS[ch]
+        assert fwd == (2 * rows if ch == 64 else rows) and fwd % 4 == 0
+
+    def chunks(n, rows):
+        return len(_chunk_partials(torch.zeros(1, n, 1, 4), torch.zeros(1, n, 1, 4), rows))
+
+    assert [chunks(n, ATTN_CHUNK_ROWS[8]) for n in (1, 256, 257, 4096)] == [1, 1, 2, 16]
+    assert [chunks(n, ATTN_CHUNK_ROWS[64]) for n in (33, 64, 1000)] == [2, 2, 32]
+    assert [chunks(n, ATTN_CHUNK_ROWS[16]) for n in (1024, 33)] == [8, 1]
+    assert chunks(256, ATTN_CHUNK_ROWS[40]) == 4
+    assert [chunks(n, ATTN_FWD_CHUNK_ROWS[64]) for n in (33, 64, 1000)] == [1, 1, 16]
+    assert [chunks(n, ATTN_FWD_CHUNK_ROWS[8]) for n in (257, 4096)] == [2, 16]
+    assert chunks(256, ATTN_FWD_CHUNK_ROWS[40]) == 4
 
 
 # (B, H, W, C): the stage widths at 8×8, then ragged shapes that cut the
