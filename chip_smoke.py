@@ -35,16 +35,40 @@ Phases, each printing JSON lines; any failure exits non-zero:
             for device-busy time, idle share, device ops per forward and A's
             device ms and share; peak memory after the cuBLAS workspaces
             that earlier phases left are freed;
-5. train    the 4-domain MKD train step (``train.steps.make_train_step``) on
+5. augment  the on-device augmentation (``data.augment.augment_batch``) at
+            D·B = 16, 256²: its device ms and device ops per step, the
+            noise's and the hash's share of them, and its wall ms; then
+            ``augment_raw`` on the card against the same call on the CPU
+            with the same uint8 inputs and parameters: masks equal, images
+            (before normalisation) equal but where the noise's floor moved
+            by one level, on at most 0.1% of the values;
+6. train    the 4-domain MKD train step (``train.steps.make_train_step``) on
             the same model, D=4 × B=4 at 256², synthetic uint8 stores from
-            ``--seed``: every launch counter read around one step; every
-            gradient against the same step through the plain versions
-            (and that gap again without dropout, and with the heads scaled
-            out of sigmoid saturation); finite fp32 and bf16 losses; the fp32 loss falling over 10
-            steps on one batch; img/s, step ms, device-busy ms, idle share,
-            device ops per step and peak memory in fp32 and bf16;
-6. the ``kernels`` line, the card's name and power limit, and last the
-   ``{"ok": true, "device": ...}`` line. Each phase prints its seconds.
+            ``--seed``, without augmentation (``device_augment=False``) so
+            the comparisons hold one batch: every launch counter read
+            around one step; every gradient against the same step through
+            the plain versions (and that gap again without dropout, and
+            with the heads scaled out of sigmoid saturation); finite fp32
+            and bf16 losses; the fp32 loss falling over 10 steps on one
+            batch; then the flagship step, with augmentation: img/s, step
+            ms, device-busy ms, idle share, device ops per step and peak
+            memory in fp32 and bf16, beside the step without augmentation
+            (the two timed in alternating pairs; the median extra ms a
+            pair) and the augmentation's device ms;
+7. trainer  the training CLI's path (``train.trainer.Trainer``): the
+            full-width MDViT at 256², D = 4 × B = 4, synthetic data of 32
+            train and 10 test images a domain (8 steps an epoch), the
+            config's default dtype (bf16), ``fit()`` for 2 epochs with
+            ``last`` every epoch, with every launch counter read around it;
+            then a second Trainer on the same directory resumes from
+            ``last`` (parameters, optimizer and scheduler state, generator
+            states and step bit-equal to the first's), trains epoch 2 and
+            runs ``test()``; one line with each epoch's img/s, eval seconds,
+            the checkpoints' bytes and seconds, the best epoch, the Total
+            row of ``test_results.csv``, peak memory and the launches;
+8. the ``kernels`` line (launches from the trainer's ``fit``), the card's
+   name and power limit, and last the ``{"ok": true, "device": ...}`` line.
+   Each phase prints its seconds.
 
 Every phase runs with TF32 off (``device.no_tf32``), as the entry points
 do, so the direct model calls and cuDNN's library times are full fp32 too.
@@ -54,26 +78,37 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import csv
 import itertools
 import json
+import shutil
 import subprocess
 import sys
 import time
 from collections import defaultdict
 from unittest import mock
 
+from pathlib import Path
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
+from mdvit_tpu_torch.config import load_config
+from mdvit_tpu_torch.data.augment import augment_batch, augment_raw, sample_aug_params
+from mdvit_tpu_torch.data.loader import gather_batch
 from mdvit_tpu_torch.data.preprocess import normalize
 from mdvit_tpu_torch.device import no_tf32
 from mdvit_tpu_torch.models.registry import build_mdvit
 from mdvit_tpu_torch.ops import dwconv, kernels
 from mdvit_tpu_torch.ops import factorized_attention as fa
+from mdvit_tpu_torch.ops.layers import fast_normal, fast_uniform
 from mdvit_tpu_torch.predict import make_forward
+from mdvit_tpu_torch.train import checkpoints as ckpt
 from mdvit_tpu_torch.train.optim import build_optimizer
 from mdvit_tpu_torch.train.steps import make_train_step
+from mdvit_tpu_torch.train.trainer import Trainer
 
 # peak rates of one H100 SXM (NVIDIA data sheet; 700 W): memory bytes/s and
 # fp32 FLOP/s outside the tensor cores (all three kernels compute in fp32)
@@ -157,6 +192,20 @@ GRAD_L2_TOL = 4e-3
 # the heads' weights and biases times this make the first step's logits O(1)
 # (the random-init logits reach tens, where the sigmoid saturates)
 UNSATURATED_HEAD_SCALE = 1e-2
+
+# augmentation, card against CPU, images before normalisation: the noise's
+# log and cos round as each libm does, which can move its floor by one level;
+# through the warp's blend (weights summing to 1) and the contrast (α ≤ 1.2)
+# such a value then differs by at most AUG_FLOOR_STEP, and at most
+# AUG_FLOOR_SHARE of the values may differ at all
+AUG_FLOOR_SHARE = 1e-3
+AUG_FLOOR_STEP = 1.25
+
+# the trainer phase: synthetic (train, test) images per domain, epochs of
+# the first Trainer
+TRAINER_SIZES = (32, 10)
+TRAINER_EPOCHS = 2
+TRAINER_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_trainer"
 
 
 def emit(obj) -> None:
@@ -743,7 +792,9 @@ def _stores(seed: int):
 def _train_setup(dtype, seed: int, drop: float = 0.1, head_scale: float = 1.0):
     """The full-width MDViT (dropout and stochastic depth ``drop``, 0.1 as the
     reference trains it; the heads' parameters times ``head_scale``) with
-    AdamW + StepLR and its MKD train step."""
+    AdamW + StepLR from the default config, its MKD train step without
+    augmentation and the flagship step, with augmentation, on the same model
+    and optimizer."""
     model = build_mdvit(img_size=IMG, num_domains=TRAIN_D, dtype=dtype, device="cuda",
                         seed=seed, drop_rate=drop, drop_path_rate=drop)
     if head_scale != 1.0:
@@ -751,8 +802,10 @@ def _train_setup(dtype, seed: int, drop: float = 0.1, head_scale: float = 1.0):
             for name, p in model.named_parameters():
                 if name.startswith("finalconv.") or ".linear_out." in name:
                     p.mul_(head_scale)
-    optimizer, scheduler = build_optimizer(model, steps_per_epoch=TRAIN_N // TRAIN_B)
-    return model, make_train_step(model, optimizer, scheduler, TRAIN_D, seed=seed)
+    optimizer, scheduler = build_optimizer(model, TRAIN_N // TRAIN_B, load_config())
+    step = make_train_step(model, optimizer, scheduler, TRAIN_D, seed=seed,
+                           device_augment=False)
+    return model, step, make_train_step(model, optimizer, scheduler, TRAIN_D, seed=seed)
 
 
 def _grad_check(model, plain_model) -> dict:
@@ -786,7 +839,7 @@ def _all_plain_gap(seed: int, batch, drop: float, head_scale: float) -> dict:
     from the same weights: the gradient gap and the first step's loss."""
     models, losses = [], []
     for plain in (False, True):
-        model, step = _train_setup(torch.float32, seed, drop, head_scale)
+        model, step, _ = _train_setup(torch.float32, seed, drop, head_scale)
         with plain_versions() if plain else contextlib.nullcontext():
             losses.append(step(*batch)["loss"].item())
         models.append(model)
@@ -796,11 +849,56 @@ def _all_plain_gap(seed: int, batch, drop: float, head_scale: float) -> dict:
                                      "worst_param", "n_out_of_tolerance")}}
 
 
-def phase_train(seed: int) -> dict:
+def phase_augment(seed: int) -> dict:
+    """The augmentation's device cost per step and the card against the CPU."""
+    images, masks = _stores(seed)
+    indices = torch.arange(TRAIN_B).repeat(TRAIN_D, 1).cuda()
+    batch = TRAIN_D * TRAIN_B
+    x_raw, m_raw, _ = gather_batch(images, masks, indices)
+    dev = x_raw.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    call = lambda: augment_batch(gen, x_raw, m_raw)
+    t = _time_calls(call, batch, iters=20)
+    p = _profile_calls(call, reps=5)
+    noise_seed = torch.tensor(seed + 12345, dtype=torch.int64, device=dev)
+    shape = tuple(x_raw.shape)
+    noise = _profile_calls(lambda: fast_normal(noise_seed, shape, dev), reps=5)
+    stream = _profile_calls(lambda: fast_uniform(noise_seed, shape, dev, offset=1), reps=5)
+    # fast_normal hashes two uniform streams of the batch's shape
+    hash_ms = 2 * stream["device_busy_ms"]
+    rec = {"phase": "augment", "D": TRAIN_D, "B": TRAIN_B, "img": IMG,
+           "device_ms": p["device_busy_ms"], "device_ops": p["device_ops_per_call"],
+           "wall_ms_mean": t["latency_ms_mean"], "wall_ms_p50": t["latency_ms_p50"],
+           "noise_device_ms": noise["device_busy_ms"],
+           "noise_share": noise["device_busy_ms"] / p["device_busy_ms"],
+           "hash_device_ms": hash_ms, "hash_share": hash_ms / p["device_busy_ms"],
+           "hash_device_ops": 2 * stream["device_ops_per_call"], "top": p["top"]}
+
+    # the card against the CPU, same uint8 inputs and parameters
+    params = sample_aug_params(gen, batch, dev)
+    got_x, got_m = augment_raw(x_raw, m_raw, params)
+    want_x, want_m = augment_raw(x_raw.cpu(), m_raw.cpu(),
+                                 {k: v.cpu() for k, v in params.items()})
+    diff = (got_x.cpu() - want_x).abs()
+    n_diff = int((diff > 0).sum())
+    rec.update(masks_equal=bool(torch.equal(got_m.cpu(), want_m)),
+               images_n_differ=n_diff, images_share_differ=n_diff / diff.numel(),
+               images_max_abs_diff=diff.max().item(), tol_share=AUG_FLOOR_SHARE,
+               tol_step=AUG_FLOOR_STEP, applied={k: int(params[k].sum()) for k in (
+                   "noise_apply", "flip_h", "flip_v", "bc_apply")},
+               warped=int((params["angle"] != 0).sum()))
+    emit(rec)
+    if not (rec["masks_equal"] and n_diff <= AUG_FLOOR_SHARE * diff.numel()
+            and rec["images_max_abs_diff"] <= AUG_FLOOR_STEP):
+        raise RuntimeError(f"augmentation on the card differs from the CPU: {rec}")
+    return rec
+
+
+def phase_train(seed: int, augment: dict) -> dict:
     images, masks = _stores(seed)
     indices = torch.arange(TRAIN_B).repeat(TRAIN_D, 1).cuda()  # one fixed batch
     batch = TRAIN_D * TRAIN_B
-    model, step = _train_setup(torch.float32, seed)
+    model, step, flagship = _train_setup(torch.float32, seed)
 
     # the main path: one train step, every launch counter read around it
     kernels.reset_launches()
@@ -817,7 +915,7 @@ def phase_train(seed: int) -> dict:
 
     # every gradient against the same step through the plain backwards, the
     # forward kernels kept: both backwards then see bit-equal activations
-    plain_model, plain_step = _train_setup(torch.float32, seed)
+    plain_model, plain_step, _ = _train_setup(torch.float32, seed)
     with plain_versions(forward=False):
         kernels.reset_launches()
         plain_step(images, masks, indices)
@@ -835,7 +933,7 @@ def phase_train(seed: int) -> dict:
     # their last bits, so the gradients agree as a whole (relative L2 norm),
     # not element-wise
     del plain_model, plain_step
-    all_model, all_step = _train_setup(torch.float32, seed)
+    all_model, all_step, _ = _train_setup(torch.float32, seed)
     with plain_versions():
         kernels.reset_launches()
         plain_metrics = all_step(images, masks, indices)
@@ -862,7 +960,7 @@ def phase_train(seed: int) -> dict:
     losses = [metrics["loss"].item()]
     for _ in range(10):
         losses.append(step(images, masks, indices)["loss"].item())
-    model16, step16 = _train_setup(torch.bfloat16, seed)
+    model16, step16, flagship16 = _train_setup(torch.bfloat16, seed)
     m16 = step16(images, masks, indices)
     finite = {k: bool(torch.isfinite(v).all()) for k, v in (
         *(("fp32_" + k, metrics[k]) for k in ("loss", "aux_loss", "kt_loss")),
@@ -873,19 +971,140 @@ def phase_train(seed: int) -> dict:
     if not all(finite.values()) or not losses[-1] < losses[0]:
         raise RuntimeError(f"train losses not finite or not falling: {losses}, {finite}")
 
-    for name, train_step in (("float32", step), ("bfloat16", step16)):
+    # the flagship step (with augmentation), beside the same step without it,
+    # the two timed in alternating pairs (the host's speed drifts)
+    for name, train_step, plain_step in (("float32", flagship, step),
+                                         ("bfloat16", flagship16, step16)):
         call = lambda: train_step(images, masks, indices)
         freed = _reset_peak()
-        t = _time_calls(call, batch, iters=10)
+        t, t_plain, extra = _time_pairs(call, lambda: plain_step(images, masks, indices),
+                                        batch, pairs=10)
         peak = torch.cuda.max_memory_allocated()
         p = _profile_calls(call, reps=3)
         emit({"phase": "train_speed", "dtype": name, "D": TRAIN_D, "B": TRAIN_B,
-              "img": IMG, "step_ms_mean": t["latency_ms_mean"],
+              "img": IMG, "augment": True, "step_ms_mean": t["latency_ms_mean"],
               "step_ms_p50": t["latency_ms_p50"], "img_per_s": t["img_per_s"],
               "img_per_s_p50": t["img_per_s_p50"], "iters": t["iters"],
               "peak_mem_bytes": peak, "cublas_workspaces_freed_bytes": freed, **p,
-              "idle_share": 1 - p["device_busy_ms"] / t["latency_ms_mean"]})
+              "idle_share": 1 - p["device_busy_ms"] / t["latency_ms_mean"],
+              "augment_device_ms": augment["device_ms"],
+              "no_augment_step_ms_mean": t_plain["latency_ms_mean"],
+              "no_augment_step_ms_p50": t_plain["latency_ms_p50"],
+              "no_augment_img_per_s": t_plain["img_per_s"],
+              "augment_extra_ms_p50": extra})
     return launches
+
+
+def _time_pairs(fa, fb, batch: int, pairs: int):
+    """``_time_calls``' records of ``fa`` and ``fb`` timed in alternating
+    pairs (``fa`` first in even pairs), and the median of the pairs'
+    differences (fa − fb), ms."""
+    for _ in range(3):
+        fa()
+        fb()
+    torch.cuda.synchronize()
+    lat = {fa: [], fb: []}
+    for i in range(pairs):
+        for fn in ((fa, fb) if i % 2 == 0 else (fb, fa)):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            lat[fn].append(time.perf_counter() - t0)
+    diffs = sorted(a - b for a, b in zip(lat[fa], lat[fb]))
+
+    def record(ts):
+        mean, p50 = sum(ts) / len(ts), sorted(ts)[len(ts) // 2]
+        return {"latency_ms_mean": mean * 1e3, "latency_ms_p50": p50 * 1e3,
+                "img_per_s": batch / mean, "img_per_s_p50": batch / p50, "iters": len(ts)}
+
+    return record(lat[fa]), record(lat[fb]), diffs[len(diffs) // 2] * 1e3
+
+
+def _trainer_config(seed: int, epochs: int):
+    sizes = {name: list(TRAINER_SIZES) for name in ("isic2018", "PH2", "DMF", "SKD")}
+    return load_config(overrides={
+        "seed": seed,
+        "data": {"img_size": IMG, "synthetic": True, "synthetic_sizes": sizes},
+        "train": {"num_epochs": epochs, "batch_size": TRAIN_B, "save_last_every": 1}})
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.dtype == b.dtype and torch.equal(a.reshape(-1).view(torch.uint8),
+                                              b.reshape(-1).view(torch.uint8))
+
+
+def _resume_check(first: Trainer, second: Trainer) -> dict:
+    """Which parts of the resumed state are bit-equal to the first's."""
+    ma, mb = first.model.state_dict(), second.model.state_dict()
+    oa, ob = first.optimizer.state_dict(), second.optimizer.state_dict()
+    optim_ok = (oa["param_groups"] == ob["param_groups"]
+                and oa["state"].keys() == ob["state"].keys()
+                and all(_same_bits(v, ob["state"][i][k])
+                        for i in oa["state"] for k, v in oa["state"][i].items()))
+    return {"model": ma.keys() == mb.keys() and all(_same_bits(v, mb[k]) for k, v in ma.items()),
+            "optimizer": optim_ok,
+            "scheduler": first.scheduler.state_dict() == second.scheduler.state_dict(),
+            "generator": _same_bits(first.train_step.generator.get_state(),
+                                    second.train_step.generator.get_state()),
+            "aug_generator": _same_bits(first.train_step.aug_generator.get_state(),
+                                        second.train_step.aug_generator.get_state()),
+            "step": first.step == second.step}
+
+
+def phase_trainer(seed: int) -> dict:
+    """The training CLI's path: Trainer.fit, a resume and test()."""
+    shutil.rmtree(TRAINER_DIR, ignore_errors=True)
+    cfg = _trainer_config(seed, TRAINER_EPOCHS)
+    with contextlib.redirect_stdout(sys.stderr):  # the trainer's own prints
+        first = Trainer(cfg, str(TRAINER_DIR))
+        eval_batches = TRAINER_EPOCHS * len(first.names) * -(
+            -TRAINER_SIZES[1] // int(cfg.test.batch_size))
+        steps = TRAINER_EPOCHS * first.steps_per_epoch
+        freed = _reset_peak()
+        # the main path: fit(), every launch counter read around it
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        first.fit()
+        torch.cuda.synchronize()
+        fit_seconds = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        writes = {name: dict(v) for name, v in first.writer.stats.items()}
+        second = Trainer(_trainer_config(seed, TRAINER_EPOCHS + 1), str(TRAINER_DIR))
+        second.maybe_resume()
+        resume = _resume_check(first, second)
+        best_epoch, history = first.best_epoch, list(first.history)
+        del first
+        second.fit()
+        rows = second.test()
+    with open(TRAINER_DIR / "test_results.csv", newline="") as f:
+        csv_rows = list(csv.DictReader(f))
+    # each train step runs every forward kernel once a block (16 blocks) and
+    # every backward kernel at BWD_CALLS; each eval batch the forwards once a block
+    expected = {name: (steps + eval_batches) * 16 if name in FORWARD
+                else steps * sum(BWD_CALLS) for name in launches}
+    rec = {"phase": "trainer", "D": TRAIN_D, "B": TRAIN_B, "img": IMG,
+           "dtype": str(cfg.tpu.compute_dtype), "sizes": list(TRAINER_SIZES),
+           "steps_per_epoch": second.steps_per_epoch,
+           "epochs": [{k: h[k] for k in ("epoch", "steps", "img_per_s", "train_seconds",
+                                         "eval_seconds")} for h in history + second.history],
+           "fit_seconds": fit_seconds, "best_epoch": best_epoch,
+           "checkpoint": {name: writes.get(name) for name in (ckpt.BEST, ckpt.LAST)},
+           "resume_bit_equal": resume, "total": csv_rows[-1] if csv_rows else None,
+           "peak_mem_bytes": peak, "cublas_workspaces_freed_bytes": freed,
+           "launches": launches, "expected": expected}
+    emit(rec)
+    if not all(resume.values()):
+        raise RuntimeError(f"resumed state differs: {resume}")
+    if launches != expected or not all(v > 0 for v in launches.values()):
+        raise RuntimeError(f"trainer launches {launches}, want {expected}")
+    if (not csv_rows or csv_rows[-1]["Name"] != "Total" or len(csv_rows) != 5
+            or rows[-1]["Name"] != "Total"
+            or not all(np.isfinite(float(r[k])) for r in csv_rows
+                       for k in ("loss", "Di_score", "IOU"))):
+        raise RuntimeError(f"bad test_results.csv: {csv_rows}")
+    shutil.rmtree(TRAINER_DIR, ignore_errors=True)
+    return rec
 
 
 # ----------------------------------------------------------------- main
@@ -922,16 +1141,20 @@ def main() -> int:
         summary.update(timed("backward", phase_backward, args.seed))
         timed("split", phase_split, args.seed)
         timed("model", phase_model, args.seed)
-        launches = timed("train", phase_train, args.seed)
+        augment = timed("augment", phase_augment, args.seed)
+        timed("train", phase_train, args.seed, augment)
+        trainer = timed("trainer", phase_trainer, args.seed)
     line = []
     for name in REPLACES:
         s = summary[name]
         calls = sum(FWD_CALLS if name in FORWARD else BWD_CALLS)
         line.append({"name": name, "route": "cuda", "source": SOURCE[name],
-                     "replaces": REPLACES[name], "launches": launches[name],
+                     "replaces": REPLACES[name], "launches": trainer["launches"][name],
                      "max_abs_err": s["max_abs_err"], **s["float32"],
                      "bound_by": "bytes" if s["bound_by"] == {"bytes"} else "operations",
                      "per": f"one fp32 train step, D*B=16 at 256 ({calls} calls)",
+                     "launches_per": "Trainer.fit, 2 epochs of 8 steps and 8 eval "
+                                     "batches, bf16, D*B=16 at 256",
                      "bf16": s["bfloat16"]})
     emit({"phase": "done", "seconds": time.perf_counter() - t0, "by_phase": seconds})
     print(smi, flush=True)

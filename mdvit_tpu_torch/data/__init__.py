@@ -1,1 +1,2 @@
-"""Host-side preprocessing of serving inputs."""
+"""The data path: datasets and splits, the stores on the card, the
+round-robin sampler, on-device augmentation and serving preprocessing."""

@@ -2,14 +2,17 @@
 the Sup domain gate, a 1×1 ``finalconv`` head and four MLPFM debranches
 ``debranch{1..4}`` (reference names).
 
-Two aux modes are ported:
+Aux modes:
 
 * ``"none"`` (serving): ``{"seg": (logits, None), "feat": ...}``;
 * ``"grouped"`` (the MKD train step): the batch is D equal domain-contiguous
   groups; each debranch runs on its own domain's group only, so only its BN
-  stats move, and the aux logits are re-stacked to (D·B, H, W, 1).
-
-``"select"`` and ``"features"`` (eval) are not ported yet.
+  stats move, and the aux logits are re-stacked to (D·B, H, W, 1);
+* ``"select"`` (eval of mixed-domain batches): every debranch runs on the
+  whole batch in eval mode and each sample's one-hot picks its output;
+* ``"features"`` (the eval step): the debranches are skipped and the output
+  carries ``aux_features``; the caller applies ``debranch_module(d)``, the
+  one debranch of a single-domain batch's domain.
 """
 from __future__ import annotations
 
@@ -51,21 +54,32 @@ class MDViT(FATEncoderDecoder):
         Returns ``{"seg": (logits (B, H, W, 1), aux logits or None),
         "feat": (B, C₄) or None}``; ``feat`` is the spatial mean of stage 4
         when ``out_feat``."""
-        if aux_mode not in ("none", "grouped"):
-            raise NotImplementedError(
-                f"aux_mode={aux_mode!r}: only 'none' and 'grouped' are ported yet")
+        if aux_mode not in ("none", "grouped", "select", "features"):
+            raise ValueError(f"unknown aux_mode {aux_mode!r}")
         encoder_outs, dec = self.forward_features(x, domain_onehot, train, gen)
         feat = encoder_outs[3].mean(dim=(1, 2)) if out_feat else None
         # the 1×1 finalconv commutes with the upsample: conv at H/4, resize 1 channel
         logits = resize_bilinear(self.finalconv(dec), (x.shape[1], x.shape[2]))
+        features = [*encoder_outs, dec]
+        d = self.num_domains
         aux = None
         if aux_mode == "grouped":
-            b, d = x.shape[0], self.num_domains
+            b = x.shape[0]
             if b % d:
                 raise ValueError(f"grouped aux_mode needs batch ({b}) divisible "
                                  f"by num_domains ({d}), domain-contiguous")
-            groups = [f.chunk(d, dim=0) for f in (*encoder_outs, dec)]
-            aux = torch.cat([
-                getattr(self, f"debranch{i + 1}")([g[i] for g in groups], train, gen)
-                for i in range(d)])
+            groups = [f.chunk(d, dim=0) for f in features]
+            aux = torch.cat([self.debranch_module(i)([g[i] for g in groups], train, gen)
+                             for i in range(d)])
+        elif aux_mode == "select":
+            outs = torch.stack([self.debranch_module(i)(features, False)
+                                for i in range(d)])  # (D, B, H, W, 1)
+            aux = torch.einsum("dbhwc,bd->bhwc", outs, domain_onehot.to(outs.dtype))
+        elif aux_mode == "features":
+            return {"seg": (logits, None), "feat": feat, "aux_features": features}
         return {"seg": (logits, aux), "feat": feat}
+
+    def debranch_module(self, domain: int) -> MLPDecoderFM:
+        """The MLPFM debranch of ``domain`` (0-based), for a single-domain
+        batch (reference dispatch, ``mdvit.py:714-724``)."""
+        return getattr(self, f"debranch{domain + 1}")

@@ -12,6 +12,8 @@ itself cannot be matched.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -58,16 +60,34 @@ def hash_u32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def fast_uniform(seed: int, shape, device: torch.device | str = "cpu") -> torch.Tensor:
+def fast_uniform(seed: int | torch.Tensor, shape, device: torch.device | str = "cpu",
+                 offset: int = 0) -> torch.Tensor:
     """U[0, 1) fp32 of ``shape`` from hashed row-major element counters,
-    bit-equal to ``mdvit_tpu/data/augment.py:fast_uniform`` at offset 0."""
+    bit-equal to ``mdvit_tpu/data/augment.py:fast_uniform``. ``seed`` is a
+    host int (dropout) or a 0-d int64 tensor on ``device`` (the augmentation
+    noise, drawn on the device); ``offset`` picks an independent stream."""
     n = 1
     for s in shape:
         n *= int(s)
     idx = torch.arange(n, dtype=torch.int64, device=device).reshape(tuple(shape))
-    base = ((int(seed) & _U32) * 0x9E3779B9) & _U32
-    bits = hash_u32(idx + base)
+    mix = (offset * 0x85EBCA6B) & _U32
+    if isinstance(seed, torch.Tensor):
+        base = _mul_u32(seed.to(torch.int64) & _U32, 0x9E3779B9)
+    else:
+        base = ((int(seed) & _U32) * 0x9E3779B9) & _U32
+    bits = hash_u32(idx + base + mix)
     return (bits >> 8).float() * (1.0 / (1 << 24))
+
+
+def fast_normal(seed: int | torch.Tensor, shape, device: torch.device | str = "cpu",
+                offset: int = 0) -> torch.Tensor:
+    """N(0, 1) by Box–Muller on two hashed-uniform streams
+    (``mdvit_tpu/data/augment.py:fast_normal``); ``log`` and ``cos`` round as
+    the device's libm does, so it matches the JAX package to fp32 rounding."""
+    u1 = fast_uniform(seed, shape, device, offset=offset * 2 + 1)
+    u2 = fast_uniform(seed, shape, device, offset=offset * 2 + 2)
+    r = torch.sqrt(-2.0 * torch.log(torch.clamp(u1, min=1e-12)))
+    return r * torch.cos((2.0 * math.pi) * u2)
 
 
 def draw_seed(gen: torch.Generator | None) -> int:

@@ -7,11 +7,15 @@ and ImageNet normalisation on the device. Every micro-batch has the same
 
 Usage::
 
-    python -m mdvit_tpu_torch.predict --weights W.pt --inputs img1.npy \\
-        img2.png some_dir/ --out_dir preds --domain 2 [--batch_size 8] \\
-        [--threshold 0.5] [--save_prob] [--dtype bfloat16] [--device cpu]
+    python -m mdvit_tpu_torch.predict (--weights W.pt | --ckpt_dir EXP) \\
+        --inputs img1.npy img2.png some_dir/ --out_dir preds --domain 2 \\
+        [--batch_size 8] [--threshold 0.5] [--save_prob] [--dtype bfloat16] \\
+        [--device cpu]
 
-``W.pt`` is a file written by ``mdvit_tpu_torch.models.registry.save_weights``.
+``W.pt`` is a file written by ``mdvit_tpu_torch.models.registry.save_weights``;
+``EXP`` an experiment dir of the port's trainer, whose best checkpoint is
+restored into the model its ``exp_config.yml`` describes (the counterpart of
+``scripts/predict.py --ckpt_dir``).
 """
 from __future__ import annotations
 
@@ -85,11 +89,36 @@ def make_forward(model: torch.nn.Module) -> Callable[[torch.Tensor, torch.Tensor
     return forward
 
 
+def load_experiment(ckpt_dir: str, device: str | torch.device,
+                    dtype: torch.dtype | None = None,
+                    config_yml: str | None = None) -> torch.nn.Module:
+    """The model of a trainer experiment dir with its best checkpoint,
+    rebuilt from ``exp_config.yml`` (or ``config_yml``), in eval mode."""
+    from mdvit_tpu_torch.config import load_config
+    from mdvit_tpu_torch.device import resolve_device
+    from mdvit_tpu_torch.train import checkpoints as ckpt
+    from mdvit_tpu_torch.train.trainer import build_model_from_config
+
+    config = load_config(config_yml or os.path.join(ckpt_dir, "exp_config.yml"))
+    if dtype is not None:
+        config.tpu.compute_dtype = str(dtype).replace("torch.", "")
+    model = build_model_from_config(config, resolve_device(device))
+    model.load_state_dict(ckpt.load_best(ckpt_dir)["model"])
+    model.config = {"img_size": int(config.data.img_size),
+                    "num_domains": int(config.model_adapt.num_domains)}
+    return model.eval()
+
+
 def main(argv: list[str] | None = None) -> None:
     from mdvit_tpu_torch.models.registry import load_weights
 
     ap = argparse.ArgumentParser(description="mdvit_tpu_torch batch inference")
-    ap.add_argument("--weights", required=True, help="file from save_weights")
+    src = ap.add_mutually_exclusive_group(required=True)
+    src.add_argument("--weights", help="file from save_weights")
+    src.add_argument("--ckpt_dir",
+                     help="trainer experiment dir (best.pt + exp_config.yml)")
+    ap.add_argument("--config_yml", default=None,
+                    help="config override for --ckpt_dir (default: its exp_config.yml)")
     ap.add_argument("--inputs", nargs="+", required=True,
                     help="image files (.npy/.png/.jpg/.bmp) and/or directories")
     ap.add_argument("--out_dir", default="predictions")
@@ -100,12 +129,15 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--save_prob", action="store_true",
                     help="also save the sigmoid probability map as .npy")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default=None,
-                    help="compute dtype (default: the weight file's)")
+                    help="compute dtype (default: the weight file's or the config's)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     dtype = getattr(torch, args.dtype) if args.dtype else None
-    model = load_weights(args.weights, device=args.device, dtype=dtype)
+    if args.ckpt_dir:
+        model = load_experiment(args.ckpt_dir, args.device, dtype, args.config_yml)
+    else:
+        model = load_weights(args.weights, device=args.device, dtype=dtype)
     device = next(model.parameters()).device
     img_size = int(model.config["img_size"])
     num_domains = int(model.config["num_domains"])

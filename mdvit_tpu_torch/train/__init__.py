@@ -1,1 +1,2 @@
-"""The MDViT train step of the port: losses, optimizer and the MKD step."""
+"""Training of the port: losses, optimizer, the MKD train step and the eval
+step, metrics, checkpoints and the Trainer."""

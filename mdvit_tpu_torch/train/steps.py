@@ -14,6 +14,13 @@ parameters alone; the second pull's gradients replace the first's there.
 Autograd prunes from the second pull the work no ``domain_layer`` parameter
 needs. Losses are summed over domains, each computed on its own domain's
 group of the domain-contiguous batch.
+
+The step augments on the device by default (``device_augment``, as in JAX),
+drawing from a generator on the model's device (``step.aug_generator``);
+dropout draws from a CPU generator (``step.generator``). A checkpoint saves
+and restores both. The eval step (``make_eval_step``) returns masked overlap
+counts and a masked fp32 loss of a padded batch. Neither step reads a device
+value on the host.
 """
 from __future__ import annotations
 
@@ -21,9 +28,10 @@ from typing import Callable, Sequence
 
 import torch
 
+from mdvit_tpu_torch.data.augment import augment_batch
 from mdvit_tpu_torch.data.loader import eval_transform, gather_batch
 from mdvit_tpu_torch.device import no_tf32
-from mdvit_tpu_torch.train.losses import bce_with_logits, dice_loss
+from mdvit_tpu_torch.train.losses import _SMOOTH, bce_with_logits, dice_loss
 
 
 def _dice_iou(probs: torch.Tensor, y: torch.Tensor):
@@ -61,18 +69,23 @@ def per_domain_losses(logits: torch.Tensor, aux_logits: torch.Tensor,
 
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     scheduler, num_domains: int, alpha: float = 0.5,
-                    det_sup: bool = True, mkd: bool = True, seed: int = 0
+                    det_sup: bool = True, mkd: bool = True, seed: int = 0,
+                    device_augment: bool = True
                     ) -> Callable[..., dict[str, torch.Tensor]]:
     """``step(images, masks, indices) → metrics``: one train step of ``model``
     on the batch that ``indices`` (D, B) selects from the per-domain uint8
-    stores ``images``/``masks``. Dropout and stochastic depth draw from a
-    ``torch.Generator`` seeded with ``seed``. Metrics are device tensors with
-    the JAX step's names; reading them is the caller's choice. The step runs
+    stores ``images``/``masks``, augmented on the device when
+    ``device_augment`` (else the eval transform). Dropout and stochastic
+    depth draw from a CPU ``torch.Generator`` seeded with ``seed``
+    (``step.generator``), the augmentation from one on the model's device
+    (``step.aug_generator``, same seed). Metrics are device tensors with the
+    JAX step's names; reading them is the caller's choice. The step runs
     with TF32 off (``no_tf32``), whatever the caller's flags say."""
     named = list(model.named_parameters())
     params = [p for _, p in named]
     masked = [i for i, (n, _) in enumerate(named) if "domain_layer" in n]
     gen = torch.Generator().manual_seed(seed)
+    aug_gen = torch.Generator(device=params[0].device).manual_seed(seed)
 
     def grads_of(loss, wrt, retain=False):
         return torch.autograd.grad(loss, wrt, retain_graph=retain,
@@ -82,7 +95,10 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     def step(images: Sequence[torch.Tensor], masks: Sequence[torch.Tensor],
              indices: torch.Tensor) -> dict[str, torch.Tensor]:
         x_raw, m_raw, onehot = gather_batch(images, masks, indices)
-        x, y = eval_transform(x_raw, m_raw)
+        if device_augment:
+            x, y = augment_batch(aug_gen, x_raw, m_raw)
+        else:
+            x, y = eval_transform(x_raw, m_raw)
         out = model(x, onehot, train=True, aux_mode="grouped" if mkd else "none",
                     gen=gen)
         logits, aux_logits = out["seg"]
@@ -110,4 +126,71 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         metrics.update(dice_per_domain=dice_d, iou_per_domain=iou_d)
         return {k: v.detach() for k, v in metrics.items()}
 
+    step.generator, step.aug_generator = gen, aug_gen
     return step
+
+
+def _masked_counts(logits: torch.Tensor, y: torch.Tensor,
+                   sample_mask: torch.Tensor) -> dict[str, torch.Tensor]:
+    probs = torch.sigmoid(logits.float()) * sample_mask
+    pred = (probs > 0.5).float()
+    yv = y * sample_mask
+    return {"inter": (pred * yv).sum(), "sum_pred": pred.sum(), "sum_true": yv.sum()}
+
+
+def make_eval_step(model: torch.nn.Module, mkd: bool = True, from_store: bool = False
+                   ) -> Callable[..., dict]:
+    """``step(images, masks, onehot, valid, domain=None, indices=None)`` →
+    masked overlap counts and the masked loss of one padded eval batch
+    (``mdvit_tpu/train/steps.py:make_eval_step``), so the host can form the
+    reference's batch-weighted averages; only the first ``valid`` rows count.
+
+    ``from_store``: ``images``/``masks`` are an ``EvalSplitStore``'s uint8
+    tensors and ``indices`` selects the batch on the device. MKD: with
+    ``domain`` (a single-domain batch) the model skips the debranches
+    (``aux_mode="features"``) and the step applies that domain's debranch;
+    without it every debranch runs and the one-hot selects
+    (``aux_mode="select"``). The loss (BCE mean + squared-denominator dice)
+    is computed in fp32 whatever the model's dtype. Returns device tensors:
+    ``{"loss", "primary": {"inter", "sum_pred", "sum_true"}, "aux": …}``."""
+
+    @torch.no_grad()
+    @no_tf32()
+    def step(images: torch.Tensor, masks: torch.Tensor, onehot: torch.Tensor,
+             valid: int, domain: int | None = None,
+             indices: torch.Tensor | None = None) -> dict:
+        if from_store:
+            images, masks = images[indices].float(), masks[indices].float()
+        x, y = eval_transform(images, masks)
+        aux_mode = "none" if not mkd else ("features" if domain is not None else "select")
+        out = model(x, onehot, train=False, aux_mode=aux_mode)
+        logits, aux_logits = out["seg"]
+        if mkd and aux_logits is None:
+            aux_logits = model.debranch_module(domain)(out["aux_features"], False)
+
+        b = x.shape[0]
+        sample_mask = (torch.arange(b, device=x.device) < valid).float().view(b, 1, 1, 1)
+        lg32 = logits.float()
+        probs = torch.sigmoid(lg32)
+        n_valid = valid * y.shape[1] * y.shape[2] * y.shape[3]
+        per_bce = (lg32.clamp(min=0.0) - lg32 * y
+                   + torch.log1p(torch.exp(-lg32.abs()))) * sample_mask
+        bce = per_bce.sum() / max(n_valid, 1)
+        pm, ym = probs * sample_mask, y * sample_mask
+        dice_l = 1.0 - (2 * (pm * ym).sum() + _SMOOTH) / (
+            (pm * pm).sum() + (ym * ym).sum() + _SMOOTH)
+        res = {"loss": bce + dice_l, "primary": _masked_counts(logits, y, sample_mask)}
+        if mkd:
+            res["aux"] = _masked_counts(aux_logits, y, sample_mask)
+        return res
+
+    return step
+
+
+def counts_to_metrics(c: dict) -> tuple[float, float]:
+    """(dice, iou) from one batch's summed counts (host numbers or tensors)."""
+    inter, sp, st = float(c["inter"]), float(c["sum_pred"]), float(c["sum_true"])
+    dice = 2 * inter / (sp + st) if sp + st > 0 else 0.0
+    union = sp + st - inter
+    iou = inter / union if union > 0 else 0.0
+    return dice, iou

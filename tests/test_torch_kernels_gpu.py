@@ -387,3 +387,64 @@ def test_dropout_masks_equal_on_card_and_cpu():
         assert got.is_cuda
         assert torch.equal(got.cpu() == 0, want == 0)
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2 ** -22, atol=0)
+
+
+# augmentation, card against CPU, images before normalisation (as
+# chip_smoke.py holds it): only where the noise's floor moved a level
+AUG_FLOOR_SHARE = 1e-3
+AUG_FLOOR_STEP = 1.25
+
+
+@pytest.mark.gpu
+def test_augmentation_on_card_matches_cpu():
+    """``augment_raw`` on the card against the CPU with the same uint8 inputs
+    and the parameters drawn on the card: masks equal, images equal but where
+    the noise's log and cos round apart and move its floor by one level."""
+    from mdvit_tpu_torch.data.augment import augment_batch, augment_raw, sample_aug_params
+    from mdvit_tpu_torch.data.datasets import synthetic_domain_arrays
+
+    _need_card()
+    data = synthetic_domain_arrays("DMF", 64, 8, 0)["train"]
+    imgs = torch.from_numpy(data.images).float()
+    msks = torch.from_numpy(data.masks).float()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for _ in range(3):
+        params = sample_aug_params(gen, 8, "cuda")
+        assert all(v.is_cuda for v in params.values())
+        got_x, got_m = augment_raw(imgs.cuda(), msks.cuda(), params)
+        want_x, want_m = augment_raw(imgs, msks, {k: v.cpu() for k, v in params.items()})
+        assert torch.equal(got_m.cpu(), want_m)
+        diff = (got_x.cpu() - want_x).abs()
+        assert int((diff > 0).sum()) <= AUG_FLOOR_SHARE * diff.numel()
+        assert diff.max().item() <= AUG_FLOOR_STEP
+    x, y = augment_batch(gen, imgs.cuda(), msks.cuda())
+    assert x.is_cuda and torch.isfinite(x).all() and y.shape == (8, 64, 64, 1)
+
+
+@pytest.mark.gpu
+def test_trainer_debug_run_on_card_launches_all_kernels(tmp_path):
+    """``python -m mdvit_tpu_torch.cli --synthetic --debug`` on the card
+    (full widths, one block a stage, img 64, bf16): one train step, one eval
+    batch a domain, test(); every kernel launched, test_results.csv with the
+    Total row."""
+    import csv
+
+    from mdvit_tpu_torch import cli
+
+    _need_card()
+    cfg = tmp_path / "card.yml"
+    cfg.write_text(
+        "data: {img_size: 64, synthetic_sizes: {isic2018: [8, 3], PH2: [8, 3], "
+        "DMF: [8, 3], SKD: [8, 3]}}\n"
+        "train: {batch_size: 2, num_epochs: 1}\n"
+        "model_kwargs: {num_layers: [1, 1, 1, 1]}\n")
+    kernels.reset_launches()
+    tr = cli.main(["--exp_name", "card", "--model", "MDViT", "--synthetic", "--debug",
+                   "--config_yml", str(cfg), "--exp_dir", str(tmp_path / "exp")])
+    torch.cuda.synchronize()
+    assert tr.device.type == "cuda" and next(tr.model.parameters()).is_cuda
+    assert all(n > 0 for n in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    with open(tmp_path / "exp" / "test_results.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    assert [r["Name"] for r in rows][-1] == "Total" and len(rows) == 5
+    assert all(np.isfinite(float(r[k])) for r in rows for k in ("loss", "Di_score", "IOU"))

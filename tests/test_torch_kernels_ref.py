@@ -190,8 +190,18 @@ def test_cpu_tensors_count_no_launch():
 
 
 def test_package_imports_no_jax():
-    code = ("import sys, mdvit_tpu_torch, mdvit_tpu_torch.predict, "
-            "mdvit_tpu_torch.convert, mdvit_tpu_torch.models.registry; "
+    """Every module of the port imports without JAX, flax or the JAX
+    package; the training CLI also without pandas and PyYAML."""
+    pkg = os.path.join(REPO, "mdvit_tpu_torch")
+    modules = sorted(
+        "mdvit_tpu_torch." + os.path.relpath(os.path.join(root, f), pkg)[:-3]
+        .replace(os.sep, ".").removesuffix(".__init__")
+        for root, _, files in os.walk(pkg) for f in files if f.endswith(".py"))
+    assert "mdvit_tpu_torch.train.trainer" in modules and len(modules) > 25
+    code = ("import importlib, sys; import mdvit_tpu_torch.cli; "
+            "third = [m for m in sys.modules if m.split('.')[0] in ('pandas', 'yaml')]; "
+            "assert not third, third; "
+            f"[importlib.import_module(m) for m in {modules!r}]; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'flax' or m == 'mdvit_tpu' or m.startswith('mdvit_tpu.')]; "
             "assert not bad, bad")
@@ -257,7 +267,8 @@ def test_entry_points_run_without_tf32():
                 for _ in range(4)]
         masks = [torch.from_numpy(rs.randint(0, 2, (2, 32, 32)).astype(np.uint8))
                  for _ in range(4)]
-        make_train_step(model, opt, sched, 4)(imgs, masks, torch.tensor([[0, 1]] * 4))
+        make_train_step(model, opt, sched, 4, device_augment=False)(
+            imgs, masks, torch.tensor([[0, 1]] * 4))
         assert seen == [(False, False, "highest")] * 2
         assert _tf32_flags()[:2] == (True, True)
     finally:

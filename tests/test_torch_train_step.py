@@ -112,7 +112,7 @@ def port_step(setup):
     variables, data, _ = setup
     model = _port_model(variables)
     opt, sched = build_optimizer(model, steps_per_epoch=10)
-    metrics = make_train_step(model, opt, sched, D)(*_batch(data))
+    metrics = make_train_step(model, opt, sched, D, device_augment=False)(*_batch(data))
     grads = {n: p.grad.clone() for n, p in model.named_parameters()}
     return model, grads, metrics
 
@@ -201,7 +201,8 @@ def test_step_variants_on_the_port(setup, det_sup, mkd):
     variables, data, _ = setup
     model = _port_model(variables)
     opt, sched = build_optimizer(model, steps_per_epoch=10)
-    make_train_step(model, opt, sched, D, det_sup=det_sup, mkd=mkd)(*_batch(data))
+    make_train_step(model, opt, sched, D, det_sup=det_sup, mkd=mkd,
+                    device_augment=False)(*_batch(data))
     got = {n: p.grad.clone() for n, p in model.named_parameters()}
     ref = _port_model(variables)
     x_raw, m_raw, onehot = gather_batch(*_batch(data))
