@@ -66,7 +66,23 @@ Phases, each printing JSON lines; any failure exits non-zero:
             runs ``test()``; one line with each epoch's img/s, eval seconds,
             the checkpoints' bytes and seconds, the best epoch, the Total
             row of ``test_results.csv``, peak memory and the launches;
-8. the ``kernels`` line (launches from the trainer's ``fit``), the card's
+8. family   the paper's model family (BASE, BASE+Sup, BASE_DSN, BASE_DASE,
+            BASE_USE, MDViT_DSN, MDViT with the MLP, DeepLabV3 and
+            Transformer debranches, MDViT without the Sup gate) at full
+            width, 256², random weights from ``--seed``, one ``family`` line
+            each: the serving forward (``make_forward``, fp32, B=16, mixed
+            one-hots) with the launch counters read around it, and its
+            logits through the kernels against the plain versions; one
+            train step (D=4 × B=4, no augmentation, the name's objective)
+            with the counters read around it, its gradients against the
+            same step through the plain versions (relative L2), finite fp32
+            and bf16 losses; step ms, img/s and device-busy ms in fp32 and
+            bf16, serving img/s at B=16 in bf16, and peak memory;
+   family_cli  ``Trainer.fit`` of one epoch (bf16, 8 train and 4 test
+            images a domain) for BASE_DSN and MDViTᵀ with the counters read
+            around it, ``test()``, then ``predict.load_experiment`` and
+            ``make_forward`` on each experiment's ``best.pt``;
+9. the ``kernels`` line (launches from the trainer's ``fit``), the card's
    name and power limit, and last the ``{"ok": true, "device": ...}`` line.
    Each phase prints its seconds.
 
@@ -78,6 +94,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import csv
 import itertools
 import json
@@ -100,11 +117,12 @@ from mdvit_tpu_torch.data.augment import augment_batch, augment_raw, sample_aug_
 from mdvit_tpu_torch.data.loader import gather_batch
 from mdvit_tpu_torch.data.preprocess import normalize
 from mdvit_tpu_torch.device import no_tf32
-from mdvit_tpu_torch.models.registry import build_mdvit
+from mdvit_tpu_torch.models.base import split_seg
+from mdvit_tpu_torch.models.registry import build_mdvit, build_model
 from mdvit_tpu_torch.ops import dwconv, kernels
 from mdvit_tpu_torch.ops import factorized_attention as fa
 from mdvit_tpu_torch.ops.layers import fast_normal, fast_uniform
-from mdvit_tpu_torch.predict import make_forward
+from mdvit_tpu_torch.predict import load_experiment, make_forward
 from mdvit_tpu_torch.train import checkpoints as ckpt
 from mdvit_tpu_torch.train.optim import build_optimizer
 from mdvit_tpu_torch.train.steps import make_train_step
@@ -206,6 +224,31 @@ AUG_FLOOR_STEP = 1.25
 TRAINER_SIZES = (32, 10)
 TRAINER_EPOCHS = 2
 TRAINER_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_trainer"
+
+# the family phase: row id → (registry name, adapt_method, decoder_name),
+# and the launches of A/B/C and of A′/B′/C′ predicted for one train step:
+# 16 blocks each; MKD with the Sup gate adds the second pull (15 blocks lie
+# after the first gate); MDViTᵀ's 4 debranches run 8 blocks each on their
+# own group, in both pulls (the KT loss reads the aux logits)
+FAMILY = {
+    "BASE": ("BASE", None, None, (16, 16)),
+    "BASE_Sup": ("BASE", "Sup", None, (16, 16)),
+    "BASE_DSN": ("BASE_DSN", None, None, (16, 16)),
+    "BASE_DASE": ("BASE_DASE", None, None, (16, 16)),
+    "BASE_USE": ("BASE_USE", None, None, (16, 16)),
+    "MDViT_DSN": ("MDViT_DSN", "Sup", "MLPFM", (16, 31)),
+    "MDViT_MLP": ("MDViT", "Sup", "MLP", (16, 31)),
+    "MDViT_DeepLabV3": ("MDViT", "Sup", "DeepLabV3", (16, 31)),
+    "MDViT_Transformer": ("MDViT", "Sup", "Transformer", (48, 95)),
+    "MDViT_noSup": ("MDViT", None, "MLPFM", (16, 16)),
+}
+# steps timed per dtype (after 1 warm-up step) and profiled; train-mode
+# forwards that set the BN running stats before the serving check
+FAMILY_STEPS, FAMILY_PROFILED, FAMILY_BN_PASSES = 3, 1, 20
+# the family_cli phase: (train, test) images a domain, and its rows
+FAMILY_CLI_SIZES = (8, 4)
+FAMILY_CLI_ROWS = ("BASE_DSN", "MDViT_Transformer")
+FAMILY_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_family"
 
 
 def emit(obj) -> None:
@@ -613,10 +656,10 @@ def _requests(batch: int, seed: int):
     return images.cuda(), onehot.cuda()
 
 
-def _time_calls(fn, batch: int, iters: int) -> dict:
-    """Host clock around each ``fn()`` ended by a synchronize, after 3 warm-up
+def _time_calls(fn, batch: int, iters: int, warmup: int = 3) -> dict:
+    """Host clock around each ``fn()`` ended by a synchronize, after ``warmup``
     calls; ``batch`` images per call."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     lat = []
@@ -639,12 +682,14 @@ def _is_attention_fwd(name: str) -> bool:
                                    "factorized_attention_fwd_apply_kernel"))
 
 
-def _profile_calls(fn, reps: int = 5) -> dict:
+def _profile_calls(fn, reps: int = 5, cpu: bool = True) -> dict:
     """Device work of ``reps`` calls under ``torch.profiler``: busy time (the
     union of device-op intervals) per call, device ops (kernels, copies,
     memsets) per call, the port kernels' share of device time, A's device ms
-    per call and share, top ops."""
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    per call and share, top ops. ``cpu=False`` traces the device alone (no
+    host events to parse: the same device numbers, faster)."""
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -1107,6 +1152,212 @@ def phase_trainer(seed: int) -> dict:
     return rec
 
 
+# ----------------------------------------------------------------- phase 8
+
+
+def _family_model(row: str, dtype, seed: int):
+    name, adapt, decoder, _ = FAMILY[row]
+    kw = {"decoder_name": decoder} if decoder else {}
+    return build_model(name, img_size=IMG, num_domains=TRAIN_D, adapt_method=adapt,
+                       dtype=dtype, device="cuda", seed=seed, **kw)
+
+
+def _family_step(model, seed: int):
+    optimizer, scheduler = build_optimizer(model, TRAIN_N // TRAIN_B, load_config())
+    return make_train_step(model, optimizer, scheduler, TRAIN_D, seed=seed,
+                           mkd=model.config["name"].startswith("MDViT"),
+                           device_augment=False)
+
+
+def _losses(metrics: dict) -> dict:
+    return {k: metrics[k].item() for k in ("loss", "aux_loss", "kt_loss") if k in metrics}
+
+
+def _split_launches(launches: dict) -> tuple[dict, dict]:
+    return ({k: v for k, v in launches.items() if k in FORWARD},
+            {k: v for k, v in launches.items() if k in BACKWARD})
+
+
+def _calibrate_bn(model, x, onehot, passes: int) -> None:
+    """Running stats that hold the batch's moments, as a trained model's do:
+    ``passes`` train-mode forwards under no_grad (momentum 0.1, so each BN
+    settles as its inputs do). At their init (mean 0, var 1) the stats let
+    activations grow through the net (logits 1e7–1e8 at 256²), where
+    cancellations in BASE_USE's SE gate inputs magnify the kernels'
+    last-bit differences (on an H100, 1.76e-4 of a 1.37e8 logit scale)."""
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for _ in range(passes):
+            model(x, onehot, train=True, gen=gen)
+
+
+def family_row(row: str, seed: int, batch_data) -> dict:
+    """One ``family`` record: serving forward and train step of ``row``."""
+    fwd_pred, bwd_pred = FAMILY[row][3]
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    images, onehot = _requests(BATCH, seed)
+    model = _family_model(row, torch.float32, seed)
+    x = normalize(images)
+    _calibrate_bn(model, x, onehot, FAMILY_BN_PASSES)
+    lap("build")
+    forward = make_forward(model)
+    kernels.reset_launches()
+    probs = forward(images, onehot)
+    torch.cuda.synchronize()
+    serve_fwd, serve_bwd = _split_launches(dict(kernels.LAUNCHES))
+    with torch.no_grad():
+        logits = split_seg(model(x, onehot)["seg"])[0]
+        with plain_versions():
+            plain = split_seg(model(x, onehot)["seg"])[0]
+    scale = plain.abs().max().item()
+    logit_rel = (logits - plain).abs().max().item() / scale
+    probs_ok = (tuple(probs.shape) == (BATCH, IMG, IMG)
+                and bool(torch.isfinite(probs).all()) and bool(torch.isfinite(logits).all()))
+    del logits, plain, probs
+    lap("serving_check")
+
+    # one train step through the kernels, every counter read around it, and
+    # the same step from the same weights through the plain versions
+    plain_model = copy.deepcopy(model)
+    step = _family_step(model, seed)
+    kernels.reset_launches()
+    metrics = step(*batch_data)
+    torch.cuda.synchronize()
+    step_fwd, step_bwd = _split_launches(dict(kernels.LAUNCHES))
+    plain_step = _family_step(plain_model, seed)
+    with plain_versions():
+        kernels.reset_launches()
+        plain_step(*batch_data)
+        torch.cuda.synchronize()
+        plain_launches = sum(kernels.LAUNCHES.values())
+    grad_l2 = _grad_l2_rel(model, plain_model)
+    del plain_model, plain_step
+    lap("step_check")
+
+    # speed: fp32 on the model above, bf16 on a fresh one of the same seed
+    speed, losses = {}, {"float32": _losses(metrics)}
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        if dtype == torch.bfloat16:
+            model = _family_model(row, dtype, seed)
+            step = _family_step(model, seed)
+            losses[name] = _losses(step(*batch_data))
+        call = lambda: step(*batch_data)
+        _reset_peak()
+        t = _time_calls(call, TRAIN_D * TRAIN_B, FAMILY_STEPS, warmup=1)
+        peak = torch.cuda.max_memory_allocated()
+        p = _profile_calls(call, reps=FAMILY_PROFILED, cpu=False)
+        speed[name] = {"step_ms_mean": t["latency_ms_mean"], "step_ms_p50": t["latency_ms_p50"],
+                       "img_per_s": t["img_per_s"], "device_busy_ms": p["device_busy_ms"],
+                       "device_ops_per_step": p["device_ops_per_call"],
+                       "idle_share": 1 - p["device_busy_ms"] / t["latency_ms_mean"],
+                       "peak_mib": peak / 2 ** 20}
+        lap(f"speed_{name}")
+    fwd16 = make_forward(model)
+    _reset_peak()
+    serving = _time_calls(lambda: fwd16(images, onehot), BATCH, iters=5, warmup=2)
+    serving_peak = torch.cuda.max_memory_allocated()
+    del model, step, fwd16
+    torch.cuda.empty_cache()
+    lap("serving_bf16")
+
+    finite = all(np.isfinite(v) for d in losses.values() for v in d.values())
+    return {"phase": "family", "row": row, "model": FAMILY[row][0],
+            "adapt_method": FAMILY[row][1], "decoder_name": FAMILY[row][2],
+            "img": IMG, "serving_B": BATCH, "D": TRAIN_D, "B": TRAIN_B,
+            "bn_calibration_passes": FAMILY_BN_PASSES,
+            "serving_launches": serve_fwd, "serving_backward_launches": serve_bwd,
+            "logit_scale": scale, "logit_rel_err": logit_rel, "tol_rel": MODEL_REL_TOL,
+            "probs_ok": probs_ok, "step_launches": {**step_fwd, **step_bwd},
+            "predicted_step_launches": {"forward": fwd_pred, "backward": bwd_pred},
+            "plain_step_launches": plain_launches,
+            "grad_l2_rel_err": grad_l2, "grad_l2_tol": GRAD_L2_TOL, "losses": losses,
+            "finite": finite, "speed": speed,
+            "serving_bf16": {"img_per_s": serving["img_per_s"],
+                             "latency_ms_mean": serving["latency_ms_mean"],
+                             "peak_mib": serving_peak / 2 ** 20},
+            "seconds": seconds}
+
+
+def phase_family(seed: int) -> list:
+    images, masks = _stores(seed)
+    batch_data = (images, masks, torch.arange(TRAIN_B).repeat(TRAIN_D, 1).cuda())
+    failures, out = [], []
+    for row in FAMILY:
+        rec = family_row(row, seed, batch_data)
+        emit(rec)
+        out.append(rec)
+        fwd, bwd = rec["serving_launches"], rec["step_launches"]
+        if not (all(fwd[k] > 0 for k in FORWARD) and not any(rec["serving_backward_launches"].values())
+                and all(bwd[k] > 0 for k in FORWARD + BACKWARD)
+                and rec["plain_step_launches"] == 0 and rec["probs_ok"] and rec["finite"]
+                and rec["logit_rel_err"] <= MODEL_REL_TOL
+                and rec["grad_l2_rel_err"] <= GRAD_L2_TOL):
+            failures.append(row)
+    if failures:
+        raise RuntimeError(f"family rows failed: {failures}")
+    return out
+
+
+def _family_cli_config(row: str, seed: int):
+    name, adapt, decoder, _ = FAMILY[row]
+    sizes = {n: list(FAMILY_CLI_SIZES) for n in ("isic2018", "PH2", "DMF", "SKD")}
+    return load_config(overrides={
+        "seed": seed, "model": name, "model_adapt": {"adapt_method": adapt or False},
+        "model_kwargs": {"decoder_name": decoder} if decoder else {},
+        "data": {"img_size": IMG, "synthetic": True, "synthetic_sizes": sizes},
+        "train": {"num_epochs": 1, "batch_size": TRAIN_B}})
+
+
+def phase_family_cli(seed: int) -> list:
+    """``Trainer.fit`` of one epoch, ``test()``, then ``load_experiment`` and
+    ``make_forward`` on ``best.pt``, for each of ``FAMILY_CLI_ROWS``."""
+    out = []
+    images, onehot = _requests(BATCH, seed)
+    for row in FAMILY_CLI_ROWS:
+        exp = FAMILY_DIR / row
+        shutil.rmtree(exp, ignore_errors=True)
+        cfg = _family_cli_config(row, seed)
+        with contextlib.redirect_stdout(sys.stderr):  # the trainer's own prints
+            tr = Trainer(cfg, str(exp))
+            kernels.reset_launches()
+            tr.fit()
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            rows = tr.test()
+            history = list(tr.history)
+            del tr
+            model = load_experiment(str(exp), "cuda")
+            probs = make_forward(model)(images, onehot)
+            torch.cuda.synchronize()
+        with open(exp / "test_results.csv", newline="") as f:
+            csv_rows = list(csv.DictReader(f))
+        rec = {"phase": "family_cli", "row": row, "dtype": str(cfg.tpu.compute_dtype),
+               "sizes": list(FAMILY_CLI_SIZES), "img": IMG,
+               "epochs": [{k: h[k] for k in ("epoch", "steps", "img_per_s", "train_seconds",
+                                             "eval_seconds")} for h in history],
+               "total": csv_rows[-1] if csv_rows else None, "launches": launches,
+               "predict_probs_ok": (tuple(probs.shape) == (BATCH, IMG, IMG)
+                                    and bool(torch.isfinite(probs).all()))}
+        emit(rec)
+        out.append(rec)
+        del model, probs
+        torch.cuda.empty_cache()
+        shutil.rmtree(exp, ignore_errors=True)
+        if (not rec["predict_probs_ok"] or not all(v > 0 for v in launches.values())
+                or not csv_rows or csv_rows[-1]["Name"] != "Total" or rows[-1]["Name"] != "Total"
+                or not all(np.isfinite(float(csv_rows[-1][k]))
+                           for k in ("loss", "Di_score", "IOU"))):
+            raise RuntimeError(f"family_cli {row} failed: {rec}")
+    return out
+
+
 # ----------------------------------------------------------------- main
 
 
@@ -1144,6 +1395,8 @@ def main() -> int:
         augment = timed("augment", phase_augment, args.seed)
         timed("train", phase_train, args.seed, augment)
         trainer = timed("trainer", phase_trainer, args.seed)
+        timed("family", phase_family, args.seed)
+        timed("family_cli", phase_family_cli, args.seed)
     line = []
     for name in REPLACES:
         s = summary[name]

@@ -7,6 +7,13 @@ Synthetic smoke run (no data on disk)::
 
     python -m mdvit_tpu_torch.cli --exp_name smoke --model MDViT --synthetic --debug
 
+``--model`` takes the paper's model family: BASE, BASE_DSN, BASE_DASE,
+BASE_USE (single objective), MDViT and MDViT_DSN (MKD); ``--adapt_method
+False`` drops the Sup gate, and ``model_kwargs: {decoder_name: MLP |
+DeepLabV3 | Transformer}`` in the config picks MDViT's debranch::
+
+    python -m mdvit_tpu_torch.cli --exp_name dsn --model BASE_DSN --synthetic --debug
+
 It trains on the card (``device: cuda``, the default); a config file with
 ``device: cpu`` runs it on the CPU through the kernels' plain versions.
 ``--exp_dir`` names a fixed experiment dir, which a second run resumes from

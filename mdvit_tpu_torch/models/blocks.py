@@ -3,8 +3,13 @@
 * ``ConvPosEnc`` (CPE): 3×3 depthwise conv plus residual → ``dwconv.cpe_conv``;
 * ``ConvRelPosEnc`` (CRPE): q ⊙ (depthwise conv of v) with 3/5/7 windows over
   2/3/3 heads, zero-embedded into one 7×7 kernel → ``dwconv.crpe_conv``;
-* ``FactorAtt`` with the Sup domain gate → ``factorized_attention``;
-* ``SerialBlock`` and ``MHSAStage``.
+* ``FactorAtt``, with the Sup domain gate when ``sup`` →
+  ``factorized_attention``;
+* ``SerialBlock`` and ``MHSAStage``, with per-domain LayerNorms
+  (``norm1s``/``norm2s``) when ``dsn``.
+
+The CPE and CRPE calls, and so kernels A, B and C, are the same in every
+configuration.
 
 In train mode the blocks drop as the JAX package's do: ``FastDropout`` after
 ``proj`` and in the MLP at ``drop``, and stochastic depth on both residual
@@ -25,7 +30,7 @@ from torch import nn
 from mdvit_tpu_torch.ops import dwconv
 from mdvit_tpu_torch.ops import factorized_attention as fa
 from mdvit_tpu_torch.ops.layers import Linear, Mlp, drop_path, fast_dropout
-from mdvit_tpu_torch.ops.norm import DomainLayerNorm
+from mdvit_tpu_torch.ops.norm import make_ln
 
 # window size → heads, in channel order (blocks.py DEFAULT_CRPE_WINDOW)
 CRPE_WINDOW = {3: 2, 5: 3, 7: 3}
@@ -85,26 +90,30 @@ class ConvRelPosEnc(nn.Module):
 
 class FactorAtt(nn.Module):
     """qkv → factorized attention + CRPE → Sup gate → proj
-    (reference ``FactorAtt_ConvRelPosEnc_Sup``).
+    (reference ``FactorAtt_ConvRelPosEnc_Sup``; without ``sup``,
+    ``FactorAtt_ConvRelPosEnc``, no gate).
 
     The gate ``domain_layer`` (fc1 → ReLU → fc2, ``max(dim // 2, 4)`` hidden
     units) maps the one-hot domain to (heads, ch), softmaxed over heads in
     fp32, and multiplies the attention output before ``proj``."""
 
     def __init__(self, dim: int, num_heads: int, num_domains: int,
-                 proj_drop: float = 0.0, dtype: torch.dtype = torch.float32):
+                 proj_drop: float = 0.0, sup: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
         self.proj_drop = proj_drop
         self.qkv = Linear(dim, 3 * dim, dtype=dtype)
         self.proj = Linear(dim, dim, dtype=dtype)
-        hidden = max(dim // 2, 4)
-        self.domain_layer = nn.Sequential(
-            Linear(num_domains, hidden, dtype=dtype), nn.ReLU(),
-            Linear(hidden, dim, dtype=dtype))
+        self.sup = sup
+        if sup:
+            hidden = max(dim // 2, 4)
+            self.domain_layer = nn.Sequential(
+                Linear(num_domains, hidden, dtype=dtype), nn.ReLU(),
+                Linear(hidden, dim, dtype=dtype))
 
     def forward(self, x: torch.Tensor, size: Tuple[int, int],
-                domain_onehot: torch.Tensor, crpe: ConvRelPosEnc,
+                domain_onehot: torch.Tensor | None, crpe: ConvRelPosEnc,
                 train: bool = False, gen: torch.Generator | None = None) -> torch.Tensor:
         b, _, c = x.shape
         h = self.num_heads
@@ -112,33 +121,42 @@ class FactorAtt(nn.Module):
         qkv = self.qkv(x)
         q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
         out = fa.factorized_attention(q, k, v, ch, ch ** -0.5) + crpe(q, v, size)
-        gate = self.domain_layer(domain_onehot.to(out.dtype))
-        gate = torch.softmax(gate.reshape(b, h, ch).float(), dim=1)
-        out = out * gate.reshape(b, 1, c).to(out.dtype)
+        if self.sup:
+            gate = self.domain_layer(domain_onehot.to(out.dtype))
+            gate = torch.softmax(gate.reshape(b, h, ch).float(), dim=1)
+            out = out * gate.reshape(b, 1, c).to(out.dtype)
         return fast_dropout(self.proj(out), self.proj_drop, train, gen)
 
 
 class SerialBlock(nn.Module):
-    """CPE → LN → FactorAtt → DropPath + → LN → MLP → DropPath +."""
+    """CPE → LN → FactorAtt → DropPath + → LN → MLP → DropPath +; the LNs
+    are ``norm1``/``norm2``, or per domain ``norm1s``/``norm2s`` (DSN)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
                  num_domains: int, drop: float = 0.0, drop_path: float = 0.0,
+                 sup: bool = True, dsn: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.norm1 = DomainLayerNorm(dim)
-        self.factoratt_crpe = FactorAtt(dim, num_heads, num_domains, drop, dtype=dtype)
-        self.norm2 = DomainLayerNorm(dim)
+        self.dsn = dsn
+        suffix = "s" if dsn else ""
+        self.add_module("norm1" + suffix, make_ln(dim, num_domains, dsn))
+        self.factoratt_crpe = FactorAtt(dim, num_heads, num_domains, drop, sup,
+                                        dtype=dtype)
+        self.add_module("norm2" + suffix, make_ln(dim, num_domains, dsn))
         self.mlp = Mlp(dim, int(dim * mlp_ratio), drop, dtype=dtype)
         self.drop_path = drop_path
 
     def forward(self, x: torch.Tensor, size: Tuple[int, int],
-                domain_onehot: torch.Tensor, cpe: ConvPosEnc,
+                domain_onehot: torch.Tensor | None, cpe: ConvPosEnc,
                 crpe: ConvRelPosEnc, train: bool = False,
                 gen: torch.Generator | None = None) -> torch.Tensor:
+        norm1, norm2 = ((self.norm1s, self.norm2s) if self.dsn
+                        else (self.norm1, self.norm2))
         x = cpe(x, size)
-        cur = self.factoratt_crpe(self.norm1(x), size, domain_onehot, crpe, train, gen)
+        cur = self.factoratt_crpe(norm1(x, domain_onehot), size, domain_onehot, crpe,
+                                  train, gen)
         x = x + drop_path(cur, self.drop_path, train, gen)
-        cur = self.mlp(self.norm2(x), train, gen)
+        cur = self.mlp(norm2(x, domain_onehot), train, gen)
         return x + drop_path(cur, self.drop_path, train, gen)
 
 
@@ -147,17 +165,18 @@ class MHSAStage(nn.Module):
 
     def __init__(self, dim: int, num_layers: int, num_heads: int,
                  mlp_ratio: float, num_domains: int, drop: float = 0.0,
-                 drop_path: float = 0.0, dtype: torch.dtype = torch.float32):
+                 drop_path: float = 0.0, sup: bool = True, dsn: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cpe = ConvPosEnc(dim, dtype=dtype)
         self.crpe = ConvRelPosEnc(dim // num_heads, num_heads, dtype=dtype)
         self.mhca_blks = nn.ModuleList(
             SerialBlock(dim, num_heads, mlp_ratio, num_domains, drop, drop_path,
-                        dtype=dtype)
+                        sup, dsn, dtype=dtype)
             for _ in range(num_layers))
 
     def forward(self, x: torch.Tensor, size: Tuple[int, int],
-                domain_onehot: torch.Tensor, train: bool = False,
+                domain_onehot: torch.Tensor | None, train: bool = False,
                 gen: torch.Generator | None = None) -> torch.Tensor:
         for blk in self.mhca_blks:
             x = blk(x, size, domain_onehot, self.cpe, self.crpe, train, gen)

@@ -1,6 +1,14 @@
-"""MDViT (``mdvit_tpu/models/mdvit.py``): the factorized-attention U-Net with
-the Sup domain gate, a 1×1 ``finalconv`` head and four MLPFM debranches
-``debranch{1..4}`` (reference names).
+"""MDViT (``mdvit_tpu/models/mdvit.py``): the factorized-attention U-Net
+(Sup gate by default, per-domain norms with ``dsn``), a 1×1 ``finalconv``
+head and one debranch a domain, ``debranch{1..D}`` (reference names), of
+the kind ``decoder_name`` names:
+
+* ``"MLPFM"`` (the flagship): ``MLPDecoderFM`` over the four encoder
+  scales and the H/4 decoder feature;
+* ``"MLP"``: ``MLPDecoder`` over the four encoder scales;
+* ``"DeepLabV3"``: ``DeepLabV3Decoder`` (ASPP) over the H/32 scale;
+* ``"Transformer"`` (MDViTᵀ): ``TransformerDebranch``, a whole transformer
+  decoder over the encoder scales and the bridge output.
 
 Aux modes:
 
@@ -22,9 +30,46 @@ import torch
 from torch import nn
 
 from mdvit_tpu_torch.models.base import FATEncoderDecoder
-from mdvit_tpu_torch.models.decoders import MLPDecoderFM
+from mdvit_tpu_torch.models.blocks import MHSAStage
+from mdvit_tpu_torch.models.decoders import (DeepLabV3Decoder, MLPDecoder, MLPDecoderFM,
+                                             UnetDecodingBlockTransformer)
 from mdvit_tpu_torch.ops.layers import Conv2d
 from mdvit_tpu_torch.ops.resize import resize_bilinear
+
+DECODERS = ("MLPFM", "MLP", "DeepLabV3", "Transformer")
+
+
+class TransformerDebranch(nn.Module):
+    """The MDViTᵀ debranch (``mdvit.py:TransformerDebranch``): four transformer
+    decoding blocks ``decoder{1..4}`` from the bridge output back to H/4,
+    with plain stages (no Sup gate, shared norms), then a 1×1 ``finalconv``
+    and the resize. The attention blocks run kernels A, B and C on the
+    debranch's own group of samples."""
+
+    def __init__(self, img_size: int, embed_dims: Sequence[int] = (64, 128, 320, 512),
+                 num_layers: Sequence[int] = (2, 2, 2, 2),
+                 mlp_ratios: Sequence[float] = (8, 8, 4, 4),
+                 num_heads: Sequence[int] = (8, 8, 8, 8), drop_rate: float = 0.0,
+                 drop_path_rate: float = 0.0, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        dims = tuple(embed_dims)
+        in_chs = (dims[3] * 2,) + dims[:0:-1]
+        for n in range(1, 5):
+            i = 4 - n
+            stage = MHSAStage(dims[i], num_layers[i], num_heads[i], mlp_ratios[i], 1,
+                              drop_rate, drop_path_rate, sup=False, dsn=False, dtype=dtype)
+            self.add_module(f"decoder{n}", UnetDecodingBlockTransformer(
+                in_chs[n - 1], dims[i], stage, dtype=dtype))
+        self.finalconv = Conv2d(dims[0], 1, 1, dtype=dtype)
+        self.img_size = (img_size, img_size)
+
+    def forward(self, features: Sequence[torch.Tensor], train: bool = False,
+                gen: torch.Generator | None = None) -> torch.Tensor:
+        """features: [s0, s1, s2, s3, bridge output]."""
+        out = features[-1]
+        for n in range(1, 5):
+            out = getattr(self, f"decoder{n}")(out, features[4 - n], None, train, gen)
+        return resize_bilinear(self.finalconv(out), self.img_size)
 
 
 class MDViT(FATEncoderDecoder):
@@ -34,19 +79,33 @@ class MDViT(FATEncoderDecoder):
                  mlp_ratios: Sequence[float] = (8, 8, 4, 4),
                  num_heads: Sequence[int] = (8, 8, 8, 8),
                  num_domains: int = 4, drop_rate: float = 0.0,
-                 drop_path_rate: float = 0.0, dtype: torch.dtype = torch.float32):
-        super().__init__(num_layers, embed_dims, mlp_ratios, num_heads,
-                         num_domains, drop_rate, drop_path_rate, dtype)
+                 drop_path_rate: float = 0.0, adapt: str | None = "Sup",
+                 dsn: bool = False, decoder_name: str = "MLPFM",
+                 bn_domain_stats: bool = True, dtype: torch.dtype = torch.float32):
+        if decoder_name not in DECODERS:
+            raise ValueError(f"unknown decoder_name {decoder_name!r}; have {DECODERS}")
+        super().__init__(num_layers, embed_dims, mlp_ratios, num_heads, num_domains,
+                         drop_rate, drop_path_rate, adapt=adapt, dsn=dsn,
+                         bn_domain_stats=bn_domain_stats, dtype=dtype)
         self.num_domains = num_domains
-        dims = tuple(embed_dims)
+        self.decoder_name = decoder_name
+        dims = self.embed_dims
+        size = (img_size, img_size)
         self.finalconv = nn.Sequential(Conv2d(dims[0], 1, 1, dtype=dtype))
         for d in range(1, num_domains + 1):
-            self.add_module(f"debranch{d}", MLPDecoderFM(
-                dims, dims[0], img_size=(img_size, img_size), dtype=dtype))
+            if decoder_name == "MLPFM":
+                branch = MLPDecoderFM(dims, dims[0], img_size=size, dtype=dtype)
+            elif decoder_name == "MLP":
+                branch = MLPDecoder(dims, img_size=size, dtype=dtype)
+            elif decoder_name == "DeepLabV3":
+                branch = DeepLabV3Decoder(dims[3], img_size=size, dtype=dtype)
+            else:
+                branch = TransformerDebranch(img_size, dims, num_layers, mlp_ratios,
+                                             num_heads, drop_rate, drop_path_rate, dtype)
+            self.add_module(f"debranch{d}", branch)
 
     def forward(self, x: torch.Tensor, domain_onehot: torch.Tensor,
-                train: bool = False, out_feat: bool = False,
-                aux_mode: str = "none",
+                train: bool = False, out_feat: bool = False, aux_mode: str = "none",
                 gen: torch.Generator | None = None) -> dict[str, Any]:
         """x (B, H, W, 3) normalised images, domain_onehot (B, D); ``gen``
         drives dropout and stochastic depth when ``train``.
@@ -56,11 +115,17 @@ class MDViT(FATEncoderDecoder):
         when ``out_feat``."""
         if aux_mode not in ("none", "grouped", "select", "features"):
             raise ValueError(f"unknown aux_mode {aux_mode!r}")
-        encoder_outs, dec = self.forward_features(x, domain_onehot, train, gen)
+        encoder_outs, bridge_out, dec = self.forward_features(x, domain_onehot, train, gen)
         feat = encoder_outs[3].mean(dim=(1, 2)) if out_feat else None
         # the 1×1 finalconv commutes with the upsample: conv at H/4, resize 1 channel
         logits = resize_bilinear(self.finalconv(dec), (x.shape[1], x.shape[2]))
-        features = [*encoder_outs, dec]
+        # what each debranch reads (mdvit.py:163-168)
+        if self.decoder_name == "Transformer":
+            features = [*encoder_outs, bridge_out]
+        elif self.decoder_name == "MLPFM":
+            features = [*encoder_outs, dec]
+        else:
+            features = list(encoder_outs)
         d = self.num_domains
         aux = None
         if aux_mode == "grouped":
@@ -79,7 +144,7 @@ class MDViT(FATEncoderDecoder):
             return {"seg": (logits, None), "feat": feat, "aux_features": features}
         return {"seg": (logits, aux), "feat": feat}
 
-    def debranch_module(self, domain: int) -> MLPDecoderFM:
-        """The MLPFM debranch of ``domain`` (0-based), for a single-domain
-        batch (reference dispatch, ``mdvit.py:714-724``)."""
+    def debranch_module(self, domain: int) -> nn.Module:
+        """The debranch of ``domain`` (0-based), for a single-domain batch
+        (reference dispatch, ``mdvit.py:714-724``)."""
         return getattr(self, f"debranch{domain + 1}")

@@ -3,6 +3,7 @@
 * Conv2d:  normal(0, √(2 / fan_out)), fan_out = k_h·k_w·out_ch / groups; bias 0
 * Linear:  normal(0, 0.02) (timm's trunc_normal cuts at ±2.0 = ±100σ); bias 0
 * norms:   weight 1, bias 0 (set by the modules themselves)
+* a module with ``init_from(generator)`` draws its own parameters
 
 Draws come from an explicit CPU ``torch.Generator`` and are copied to the
 parameter's device, so one seed gives the same weights on the CPU and a card.
@@ -23,7 +24,8 @@ def _normal_(param: torch.Tensor, std: float, generator: torch.Generator) -> Non
 
 @torch.no_grad()
 def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
-    """Initialise every Conv2d and Linear under ``module``, in module order."""
+    """Initialise every Conv2d, Linear and ``init_from`` module under
+    ``module``, in module order."""
     for m in module.modules():
         if isinstance(m, nn.Conv2d):
             kh, kw = m.kernel_size
@@ -31,6 +33,9 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
             _normal_(m.weight, math.sqrt(2.0 / fan_out), generator)
         elif isinstance(m, nn.Linear):
             _normal_(m.weight, 0.02, generator)
+        elif hasattr(m, "init_from"):
+            m.init_from(generator)
+            continue
         else:
             continue
         if m.bias is not None:

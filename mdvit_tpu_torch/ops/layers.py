@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mdvit_tpu_torch.ops.norm import DomainBatchNorm
+from mdvit_tpu_torch.ops.norm import NormSpec, make_bn
 
 # Minimax fit of (b, a) in 0.5·x·(1+tanh(b(x+ax³))) to the exact erf GELU
 # x·Φ(x) over [0, 10] (the JAX package's bf16 GELU); max |err| 2.7e-4.
@@ -140,9 +140,10 @@ class Conv2d(nn.Conv2d):
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, groups: int = 1,
-                 bias: bool = True, dtype: torch.dtype = torch.float32):
+                 bias: bool = True, dilation: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__(in_ch, out_ch, kernel_size, stride, padding,
-                         groups=groups, bias=bias)
+                         dilation=dilation, groups=groups, bias=bias)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -166,23 +167,42 @@ class Linear(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
-class ConvBN(nn.Module):
-    """Conv (no bias) → BN → hardswish (reference ``Conv2d_BN``; every use in
-    MDViT takes hardswish)."""
+class _NormOwner(nn.Module):
+    """Holds a conv-path BatchNorm under the reference's name: ``bn``
+    (shared) or ``bns`` (DSN, one per domain)."""
+
+    def _set_bn(self, features: int, norm: NormSpec) -> None:
+        self.dsn = norm.dsn
+        if norm.dsn:
+            self.bns = make_bn(features, norm)
+        else:
+            self.bn = make_bn(features, norm)
+
+    def norm(self, x: torch.Tensor, domain_onehot: torch.Tensor | None,
+             train: bool) -> torch.Tensor:
+        return (self.bns if self.dsn else self.bn)(x, domain_onehot, train)
+
+
+class ConvBN(_NormOwner):
+    """Conv (no bias) → BN → act (reference ``Conv2d_BN``, DSN ``Conv2d_BN_M``;
+    MDViT's stems take hardswish, a decoder's ``res_conv`` no act)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 1,
-                 stride: int = 1, padding: int = 0, dtype: torch.dtype = torch.float32):
+                 stride: int = 1, padding: int = 0, act: str | None = "hardswish",
+                 norm: NormSpec = NormSpec(), dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conv = Conv2d(in_ch, out_ch, kernel_size, stride, padding,
                            bias=False, dtype=dtype)
-        self.bn = DomainBatchNorm(out_ch)
+        self._set_bn(out_ch, norm)
+        self.act = act
 
     def forward(self, x: torch.Tensor, domain_onehot: torch.Tensor | None = None,
                 train: bool = False) -> torch.Tensor:
-        return F.hardswish(self.bn(self.conv(x), domain_onehot, train))
+        y = self.norm(self.conv(x), domain_onehot, train)
+        return F.hardswish(y) if self.act == "hardswish" else y
 
 
-class DWConvBN(nn.Module):
+class DWConvBN(_NormOwner):
     """Depthwise-separable conv → BN → hardswish, in the reference's two wirings:
 
     * ``dw_groups_on="in"`` (patch embeds): dw conv in→in, groups=in, then
@@ -195,7 +215,7 @@ class DWConvBN(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
                  stride: int = 1, dw_groups_on: str = "in",
-                 dtype: torch.dtype = torch.float32):
+                 norm: NormSpec = NormSpec(), dtype: torch.dtype = torch.float32):
         super().__init__()
         pad = (kernel_size - 1) // 2
         if dw_groups_on == "in":
@@ -208,11 +228,11 @@ class DWConvBN(nn.Module):
             self.pwconv = Conv2d(out_ch, out_ch, 1, bias=False, dtype=dtype)
         else:
             raise ValueError(f"dw_groups_on must be 'in' or 'out', got {dw_groups_on!r}")
-        self.bn = DomainBatchNorm(out_ch)
+        self._set_bn(out_ch, norm)
 
     def forward(self, x: torch.Tensor, domain_onehot: torch.Tensor | None = None,
                 train: bool = False) -> torch.Tensor:
-        return F.hardswish(self.bn(self.pwconv(self.dwconv(x)), domain_onehot, train))
+        return F.hardswish(self.norm(self.pwconv(self.dwconv(x)), domain_onehot, train))
 
 
 class Mlp(nn.Module):

@@ -1,4 +1,4 @@
-"""Batch inference with the port: segment images with MDViT's primary head.
+"""Batch inference with the port: segment images with a model's primary head.
 
 Counterpart of ``scripts/predict.py``. Preprocessing matches the eval
 pipeline: half-pixel bilinear resize to the model's resolution, then norm01
@@ -28,6 +28,7 @@ import torch
 
 from mdvit_tpu_torch.data.preprocess import normalize, resize_bilinear_np
 from mdvit_tpu_torch.device import no_tf32
+from mdvit_tpu_torch.models.base import split_seg
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".npy")
 
@@ -77,14 +78,15 @@ def save_mask(path_base: str, mask: np.ndarray, prob: np.ndarray | None) -> None
 
 def make_forward(model: torch.nn.Module) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
     """``(images 0..255 NHWC, onehot) → sigmoid probability maps (B, H, W)``
-    from the primary head, as ``scripts/predict.py:make_forward`` for MDViT.
-    Runs with TF32 off (``no_tf32``), whatever the caller's flags say."""
+    from the primary head of any ported model, as
+    ``scripts/predict.py:make_forward``. Runs with TF32 off (``no_tf32``),
+    whatever the caller's flags say."""
 
     @torch.no_grad()
     @no_tf32()
     def forward(x: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
         out = model(normalize(x), onehot, train=False, aux_mode="none")
-        return torch.sigmoid(out["seg"][0].float())[..., 0]
+        return torch.sigmoid(split_seg(out["seg"])[0].float())[..., 0]
 
     return forward
 

@@ -12,8 +12,10 @@ One forward, then two backward pulls: ``autograd.grad`` of L_aux + L_uni over
 all parameters (keeping the graph), and of L_uni over the ``domain_layer``
 parameters alone; the second pull's gradients replace the first's there.
 Autograd prunes from the second pull the work no ``domain_layer`` parameter
-needs. Losses are summed over domains, each computed on its own domain's
-group of the domain-contiguous batch.
+needs; a model with no Sup gate has none, and its step makes one pull.
+Losses are summed over domains, each computed on its own domain's group of
+the domain-contiguous batch. ``mkd=False`` is BASE's single objective, the
+sum of the per-domain segmentation losses, in one pull.
 
 The step augments on the device by default (``device_augment``, as in JAX),
 drawing from a generator on the model's device (``step.aug_generator``);
@@ -31,6 +33,7 @@ import torch
 from mdvit_tpu_torch.data.augment import augment_batch
 from mdvit_tpu_torch.data.loader import eval_transform, gather_batch
 from mdvit_tpu_torch.device import no_tf32
+from mdvit_tpu_torch.models.base import split_seg
 from mdvit_tpu_torch.train.losses import _SMOOTH, bce_with_logits, dice_loss
 
 
@@ -101,7 +104,7 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
             x, y = eval_transform(x_raw, m_raw)
         out = model(x, onehot, train=True, aux_mode="grouped" if mkd else "none",
                     gen=gen)
-        logits, aux_logits = out["seg"]
+        logits, aux_logits = split_seg(out["seg"])
         if mkd:
             seg_d, aux_d, kt_d, dice_d, iou_d = per_domain_losses(
                 logits, aux_logits, y, num_domains)
@@ -110,8 +113,9 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
             metrics = {"loss": multi_seg, "aux_loss": multi_aux, "kt_loss": multi_kt,
                        "loss_per_domain": seg_d, "aux_loss_per_domain": aux_d,
                        "kt_loss_per_domain": kt_d}
-            grads = list(grads_of(multi_aux + uni, params, retain=det_sup))
-            if det_sup:
+            second_pull = det_sup and bool(masked)
+            grads = list(grads_of(multi_aux + uni, params, retain=second_pull))
+            if second_pull:
                 g_uni = grads_of(uni, [params[i] for i in masked])
                 for i, g in zip(masked, g_uni):
                     grads[i] = g
@@ -164,7 +168,7 @@ def make_eval_step(model: torch.nn.Module, mkd: bool = True, from_store: bool = 
         x, y = eval_transform(images, masks)
         aux_mode = "none" if not mkd else ("features" if domain is not None else "select")
         out = model(x, onehot, train=False, aux_mode=aux_mode)
-        logits, aux_logits = out["seg"]
+        logits, aux_logits = split_seg(out["seg"])
         if mkd and aux_logits is None:
             aux_logits = model.debranch_module(domain)(out["aux_features"], False)
 

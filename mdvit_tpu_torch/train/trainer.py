@@ -9,8 +9,12 @@ reference's own choice), per-domain scalars, ``test_results.csv`` with a
 Total row, ``debug`` one-batch mode. ``last.pt`` holds the full train state
 for resume, ``best_meta.json`` the best IoU and epoch.
 
-The port trains MDViT (Sup gate, MLPFM debranches) on one device; other
-models raise ``NotImplementedError`` naming their ROADMAP item.
+The port trains the models of the paper's comparisons on one device: MDViT
+(any debranch, with or without the Sup gate), MDViT_DSN, BASE (± Sup),
+BASE_DSN, BASE_DASE and BASE_USE; a model whose name starts with MDViT
+trains with the MKD objective, the others with the single one. The other
+models of the JAX registry raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -29,8 +33,7 @@ from mdvit_tpu_torch.data.loader import (DeviceDomainStore, EvalSplitStore,
                                          RoundRobinSampler, eval_batches,
                                          eval_index_batches)
 from mdvit_tpu_torch.device import resolve_device
-from mdvit_tpu_torch.models.mdvit import MDViT
-from mdvit_tpu_torch.models.registry import build_mdvit
+from mdvit_tpu_torch.models.registry import build_model
 from mdvit_tpu_torch.train import checkpoints as ckpt
 from mdvit_tpu_torch.train.optim import build_optimizer, steplr
 from mdvit_tpu_torch.train.steps import counts_to_metrics, make_eval_step, make_train_step
@@ -102,27 +105,21 @@ def fetch(tree: Any) -> Any:
     return rebuild(tree)
 
 
-def build_model_from_config(config, device: torch.device) -> MDViT:
-    """MDViT from the config: ``data.img_size``, ``model_adapt.num_domains``,
-    ``tpu.compute_dtype``, ``seed`` and ``model_kwargs`` (widths and depths,
-    for tiny test models)."""
-    if config.model != "MDViT":
-        raise NotImplementedError(
-            f"model {config.model!r} is not ported: MDViT_DSN and BASE_DSN are "
-            "ROADMAP queue A item 4, the BASE family and the other debranches item 5")
-    adapt = config.model_adapt.adapt_method
-    if not (adapt and "Sup" in str(adapt)):
-        raise NotImplementedError(
-            f"adapt_method={adapt!r}: only the Sup gate is ported "
-            "(the BASE family is ROADMAP queue A item 5)")
+def _is_mkd_model(name: str) -> bool:
+    return name.startswith("MDViT")
+
+
+def build_model_from_config(config, device: torch.device) -> torch.nn.Module:
+    """The registry model ``config.model`` (``trainer.py:build_model_from_config``):
+    ``data.img_size``, ``model_adapt.num_domains`` and ``adapt_method``,
+    ``tpu.compute_dtype``, ``seed`` and ``model_kwargs`` (widths and depths
+    for tiny test models, MDViT's ``decoder_name``)."""
     kw = {k: tuple(v) if isinstance(v, list) else v
           for k, v in (config.get("model_kwargs") or {}).items()}
-    if kw.pop("decoder_name", "MLPFM") != "MLPFM":
-        raise NotImplementedError("only the MLPFM debranch is ported "
-                                  "(the others are ROADMAP queue A item 5)")
     dtype = torch.bfloat16 if str(config.tpu.compute_dtype) == "bfloat16" else torch.float32
-    return build_mdvit(img_size=int(config.data.img_size),
-                       num_domains=int(config.model_adapt.num_domains), dtype=dtype,
+    return build_model(config.model, img_size=int(config.data.img_size),
+                       num_domains=int(config.model_adapt.num_domains),
+                       adapt_method=config.model_adapt.adapt_method, dtype=dtype,
                        device=device, seed=int(config.get("seed", 42)), **kw)
 
 
@@ -136,6 +133,7 @@ class Trainer:
         self.logger = ScalarLogger(exp_dir)
         self.device = resolve_device(config.get("device"))
         self.model = build_model_from_config(config, self.device)
+        self.mkd = _is_mkd_model(config.model)
 
         self.names = list(config.data.name)
         self.num_domains = len(self.names)
@@ -169,12 +167,13 @@ class Trainer:
         self.train_step = make_train_step(
             self.model, self.optimizer, self.scheduler, self.num_domains,
             alpha=float(config.train.get("alpha", 0.5)),
-            det_sup=bool(config.train.get("det_sup", True)),
+            det_sup=bool(config.train.get("det_sup", True)), mkd=self.mkd,
             seed=int(config.get("seed", 42)),
             device_augment=device_augment and bool(config.data.train_aug))
         self.device_eval = bool(config.tpu.get("device_eval", True))
         self._eval_stores: dict[str, EvalSplitStore] = {}
-        self.eval_step = make_eval_step(self.model, from_store=self.device_eval)
+        self.eval_step = make_eval_step(self.model, mkd=self.mkd,
+                                        from_store=self.device_eval)
         self.step = 0
         self.max_iou = 0.0
         self.best_epoch = 0
@@ -276,24 +275,27 @@ class Trainer:
             for i, n in enumerate(self.names):
                 self.logger.add_scalar(f"Train/{n}/loss", m["loss_per_domain"][i], gstep)
                 self.logger.add_scalar(f"Train/{n}/IOU", m["iou_per_domain"][i], gstep)
-                self.logger.add_scalar(f"Train/{n}/auxloss", m["aux_loss_per_domain"][i],
-                                       gstep)
-                self.logger.add_scalar(f"Train/{n}/ktloss", m["kt_loss_per_domain"][i], gstep)
+                if self.mkd:
+                    self.logger.add_scalar(f"Train/{n}/auxloss",
+                                           m["aux_loss_per_domain"][i], gstep)
+                    self.logger.add_scalar(f"Train/{n}/ktloss",
+                                           m["kt_loss_per_domain"][i], gstep)
 
         def mean_of(key):
             return float(np.mean([m[key] for m in steps]))
 
         epoch_mean = {"loss": mean_of("loss"), "iou": mean_of("iou_per_domain"),
-                      "dice": mean_of("dice_per_domain"), "aux_loss": mean_of("aux_loss"),
-                      "kt_loss": mean_of("kt_loss")}
+                      "dice": mean_of("dice_per_domain")}
         gstep = step0 + len(steps)
         # the rate the epoch's last update used (update gstep - 1)
         self.logger.add_scalar("Train/lr", steplr(self.config, self.steps_per_epoch,
                                                   max(gstep - 1, 0)), epoch)
         self.logger.add_scalar("Train/Average/sum_loss", epoch_mean["loss"], gstep)
         self.logger.add_scalar("Train/Average/IOU", epoch_mean["iou"], gstep)
-        self.logger.add_scalar("Train/Average/aux_loss", epoch_mean["aux_loss"], gstep)
-        self.logger.add_scalar("Train/Average/kt_loss", epoch_mean["kt_loss"], gstep)
+        if self.mkd:
+            for key in ("aux_loss", "kt_loss"):
+                epoch_mean[key] = mean_of(key)
+                self.logger.add_scalar(f"Train/Average/{key}", epoch_mean[key], gstep)
         img_per_s = len(steps) * self.num_domains * self.batch_size / max(dt, 1e-9)
         print(f"Epoch {epoch}, steps {len(steps)} || sum_loss: {epoch_mean['loss']:.4f}, "
               f"Avg IOU: {epoch_mean['iou']:.4f} || {dt:.1f}s ({img_per_s:.1f} img/s)")
@@ -313,7 +315,7 @@ class Trainer:
     # ------------------------------------------------------------------
     def evaluate(self, split: str = "test", epoch: int | None = None) -> dict:
         """Per-domain batch-weighted loss, dice and IoU (reference protocol);
-        every batch goes to its domain's debranch."""
+        with MKD every batch goes to its domain's debranch too."""
         results = {}
         eval_bs = int(self.config.test.batch_size)
         for di, n in enumerate(self.names):
@@ -339,7 +341,7 @@ class Trainer:
             loss_sum = dice_sum = iou_sum = aux_dice_sum = aux_iou_sum = 0.0
             for out, valid in zip(fetch(pending), valids):
                 dice, iou = counts_to_metrics(out["primary"])
-                adice, aiou = counts_to_metrics(out["aux"])
+                adice, aiou = counts_to_metrics(out["aux"]) if self.mkd else (0.0, 0.0)
                 loss_sum += float(out["loss"]) * valid
                 dice_sum += dice * valid
                 iou_sum += iou * valid

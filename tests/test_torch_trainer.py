@@ -173,14 +173,112 @@ def test_resume_restores_identical_state(tmp_path):
 
 
 @pytest.mark.parametrize("over,match", [
-    ({"model": "MDViT_DSN"}, "queue A item 4"),
-    ({"model_adapt": {"adapt_method": False}}, "queue A item 5"),
-    ({"model_kwargs": {**TINY_MODEL, "decoder_name": "MLP"}}, "queue A item 5"),
+    ({"model": "SwinUnet"}, "queue A item 8"),
+    ({"model": "UTNet"}, "queue A item 8"),
+    ({"model": "TransFuse_S"}, "queue A item 8"),
 ])
 def test_unported_models_raise(tmp_path, over, match):
     cfg = load_config(overrides={**_overrides(**over), "device": "cpu"})
     with pytest.raises(NotImplementedError, match=match):
         Trainer(cfg, str(tmp_path / "exp"))
+
+
+# the model family of the paper's comparisons: (model, adapt_method, decoder_name)
+FAMILY = {
+    "BASE": ("BASE", False, None), "BASE_Sup": ("BASE", "Sup", None),
+    "BASE_DSN": ("BASE_DSN", False, None), "BASE_DASE": ("BASE_DASE", False, None),
+    "BASE_USE": ("BASE_USE", False, None), "MDViT_DSN": ("MDViT_DSN", "Sup", None),
+    "MDViT_MLP": ("MDViT", "Sup", "MLP"), "MDViT_DeepLabV3": ("MDViT", "Sup", "DeepLabV3"),
+    "MDViT_Transformer": ("MDViT", "Sup", "Transformer"), "MDViT_noSup": ("MDViT", False, None),
+}
+
+
+@pytest.mark.parametrize("row", list(FAMILY))
+def test_trainer_builds_the_family(tmp_path, row):
+    """Trainer builds each model by its registry name on the CPU, with the
+    MKD objective exactly for the MDViT names."""
+    name, adapt, decoder = FAMILY[row]
+    kw = {**TINY_MODEL, "decoder_name": decoder} if decoder else TINY_MODEL
+    cfg = load_config(overrides={**_overrides(model=name, model_kwargs=kw,
+                                              model_adapt={"adapt_method": adapt}),
+                                 "device": "cpu"})
+    tr = Trainer(cfg, str(tmp_path / "exp"))
+    assert tr.mkd == name.startswith("MDViT")
+    assert tr.model.config["name"] == name
+    names = [n for n, _ in tr.model.named_parameters()]
+    assert any("domain_layer" in n for n in names) == bool(adapt)
+    assert any("debranch" in n for n in names) == tr.mkd
+    assert any(".bns." in n for n in names) == name.endswith("DSN")
+
+
+def test_entry_points_take_every_model(tmp_path):
+    """The three entry-point faults the model family reaches: a model with no
+    ``domain_layer`` parameter trains with det_sup on (one pull, no
+    ``autograd.grad`` over nothing); BASE's ``seg`` (a tensor) is not
+    unpacked as a ``(logits, aux)`` pair, which at B = 2 would take the two
+    samples for the two heads; and a weight file names its model, which
+    ``load_weights`` rebuilds."""
+    from mdvit_tpu_torch.data.preprocess import normalize
+    from mdvit_tpu_torch.models.registry import build_model, load_weights, save_weights
+    from mdvit_tpu_torch.predict import make_forward
+    from mdvit_tpu_torch.train.optim import build_optimizer
+    from mdvit_tpu_torch.train.steps import make_eval_step, make_train_step
+
+    rs = np.random.RandomState(0)
+    images = [torch.from_numpy(rs.randint(0, 256, (2, 32, 32, 3)).astype(np.uint8))
+              for _ in range(2)]
+    masks = [torch.from_numpy((rs.rand(2, 32, 32) > 0.5).astype(np.uint8)) for _ in range(2)]
+    indices = torch.tensor([[0], [1]])
+    tiny = {k: tuple(v) for k, v in TINY_MODEL.items()}
+
+    gateless = build_model("MDViT", img_size=32, num_domains=2, adapt_method=None,
+                           device="cpu", **tiny)
+    opt, sch = build_optimizer(gateless, steps_per_epoch=1)
+    m = make_train_step(gateless, opt, sch, 2, det_sup=True, device_augment=False)(
+        images, masks, indices)
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["aux_loss"])
+
+    base = build_model("BASE_DSN", img_size=32, num_domains=2, device="cpu", **tiny)
+    x = torch.stack([images[0][0], images[1][1]]).float()
+    y = torch.stack([masks[0][0], masks[1][1]]).float()[..., None]
+    oh = torch.eye(2)
+    probs = make_forward(base)(x, oh)
+    assert probs.shape == (2, 32, 32)
+    with torch.no_grad():
+        logits = base(normalize(x), oh)["seg"]
+    torch.testing.assert_close(probs, torch.sigmoid(logits)[..., 0])
+    ev = make_eval_step(base, mkd=False)(x, y[..., 0], oh, 2)
+    assert ev["primary"]["sum_pred"].item() == (torch.sigmoid(logits) > 0.5).sum().item()
+    opt, sch = build_optimizer(base, steps_per_epoch=1)
+    base_copy = copy.deepcopy(base).train()
+    m = make_train_step(base, opt, sch, 2, mkd=False, device_augment=False)(
+        images, masks, indices)
+    assert m["loss_per_domain"].shape == (2,)
+
+    path = str(tmp_path / "w.pt")
+    save_weights(path, base_copy.eval())
+    back = load_weights(path, device="cpu")
+    assert type(back).__name__ == "BASE" and back.config["name"] == "BASE_DSN"
+    for k, v in base_copy.state_dict().items():
+        assert torch.equal(back.state_dict()[k], v), k
+    blob = torch.load(path, weights_only=True)
+    blob["model"] = blob["config"]["name"] = "SwinUnet"
+    torch.save(blob, path)
+    with pytest.raises(ValueError, match="SwinUnet"):
+        load_weights(path, device="cpu")
+
+
+def test_cli_trains_base_dsn(tmp_path):
+    """``--model BASE_DSN --synthetic --debug`` on the CPU: the single
+    objective's scalars, eval without a debranch, the results table."""
+    exp = tmp_path / "exp"
+    tr = cli.main(["--exp_name", "dsn", "--model", "BASE_DSN", "--synthetic", "--debug",
+                   "--config_yml", _cli_config(tmp_path), "--exp_dir", str(exp)])
+    assert not tr.mkd and tr.history[0]["steps"] == 1
+    with open(exp / "test_results.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    assert [r["Name"] for r in rows] == ["isic2018", "PH2", "DMF", "SKD", "Total"]
+    assert all(np.isfinite(float(r[k])) for r in rows for k in ("loss", "Di_score", "IOU"))
 
 
 def test_train_aug_needs_device_augment(tmp_path):
