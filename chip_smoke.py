@@ -17,8 +17,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
             and the kernel's eager time (host launch cost included); then A
             the same way at B=1 (``kernel_b1`` records, outside the per-step
             sums);
-3. backward each backward kernel against its plain backward at the same
-            shapes and types, two calls bit-equal, and the same times; the
+3. backward each backward op (``torch.ops.mdvit.*_bwd``) against its plain
+            backward at the same shapes and types, two calls bit-equal,
+            and the same times; the
             library yardstick of CPE/CRPE is cuDNN's backward of their
             ``F.conv2d(groups=C)`` forms (``aten.convolution_backward``);
    split    A's device launches per call at B=16 and B=1, and A′'s, B′'s and
@@ -82,12 +83,33 @@ Phases, each printing JSON lines; any failure exits non-zero:
             images a domain) for BASE_DSN and MDViTᵀ with the counters read
             around it, ``test()``, then ``predict.load_experiment`` and
             ``make_forward`` on each experiment's ``best.pt``;
-9. the ``kernels`` line (launches from the trainer's ``fit``), the card's
-   name and power limit, and last the ``{"ok": true, "device": ...}`` line.
-   Each phase prints its seconds.
+9. export   ``export.export_serving`` of the full-width MDViT and BASE_DSN
+            at B=16 in fp32 and bf16 (random weights from ``--seed``, the
+            family phase's BN calibration), saved to a temporary dir,
+            loaded and run: the artifact's MB, export and load seconds, the
+            loaded program's launches around one call (16 each of A, B, C),
+            its bits against the live ``make_forward`` (must be equal), and
+            the serving ms of both;
+10. remat   one fp32 train step of MDViT and of BASE (dropout 0.1, no
+            augmentation) with ``remat`` off and on from one state: the
+            counters around each step (MDViT 48 / 31, BASE 32 / 16), equal
+            losses, bit-equal BN running stats and generator state, the
+            gradients' relative L2 within ``GRAD_L2_TOL`` and the
+            parameter updates' within ``GRAD_L2_TOL`` or twice a second
+            plain step's (the control); step ms, device-busy ms and peak
+            memory of each;
+11. kfold_cli two folds of the training CLI (MDViT, full width, one block
+            a stage, img 64, bf16, debug), ``kfold_aggregate`` and
+            ``summarize_run`` over them, and the export CLI with
+            ``--check`` on fold 0's ``best.pt``;
+12. the ``kernels`` line (launches from the trainer's ``fit``, and by path
+   under ``launches_by_path``), the card's name and power limit, and last
+   the ``{"ok": true, "device": ...}`` line. Each phase prints its seconds.
 
 Every phase runs with TF32 off (``device.no_tf32``), as the entry points
 do, so the direct model calls and cuDNN's library times are full fp32 too.
+The kernels are reached through their custom ops (``torch.ops.mdvit.*``),
+the model's only route to them.
 It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -98,9 +120,11 @@ import copy
 import csv
 import itertools
 import json
+import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from collections import defaultdict
 from unittest import mock
@@ -112,6 +136,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
+from mdvit_tpu_torch import cli, export, kfold_aggregate, summarize_run
 from mdvit_tpu_torch.config import load_config
 from mdvit_tpu_torch.data.augment import augment_batch, augment_raw, sample_aug_params
 from mdvit_tpu_torch.data.loader import gather_batch
@@ -249,6 +274,34 @@ FAMILY_STEPS, FAMILY_PROFILED, FAMILY_BN_PASSES = 3, 1, 20
 FAMILY_CLI_SIZES = (8, 4)
 FAMILY_CLI_ROWS = ("BASE_DSN", "MDViT_Transformer")
 FAMILY_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_family"
+# the export phase: the models exported at B=16 in fp32 and bf16 (MDViT and
+# BASE_DSN, the norm case), and the serving calls timed of each program
+EXPORT_ROWS = ("MDViT", "BASE_DSN")
+EXPORT_TIMED = 10
+# the remat phase: model → launches of A/B/C and of A′/B′/C′ predicted for
+# one remat train step: each backward pull recomputes the forward once (MDViT
+# with the Sup gate pulls twice: 16 × 3 forward, 16 + 15 backward; BASE once)
+REMAT = {"MDViT": (48, 31), "BASE": (32, 16)}
+REMAT_STEPS = 3
+# remat against plain, parameter updates: AdamW's first update is
+# lr·g/(|g| + 1e-8) a weight, so every weight whose gradient is cancellation
+# noise (a conv bias ahead of a BatchNorm) moves by ±lr at the noise's sign,
+# which cuDNN's backward does not keep from run to run. On an H100 the
+# gradients of a remat and a plain MDViT step read 7e-7 apart and their
+# updates 4.2e-3. So the updates are held to GRAD_L2_TOL or to this many
+# times the gap between two plain steps from the same state (the control),
+# whichever is larger; the gradients to GRAD_L2_TOL
+UPDATE_SPREAD = 2.0
+# the kfold_cli phase: two folds of the CLI (debug: one step, one eval batch
+# a domain) of MDViT at full width with one block a stage, img 64, bf16, then
+# the aggregate, the summary and the export CLI's check on fold 0
+KFOLD_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_kfold"
+KFOLD_IMG = 64
+KFOLD_CONFIG = {"debug": True,
+                "data": {"img_size": KFOLD_IMG, "synthetic": True, "name": ["isic2018", "PH2"],
+                         "synthetic_sizes": {"isic2018": [8, 4], "PH2": [8, 4]}},
+                "train": {"num_epochs": 1, "batch_size": 2}, "test": {"batch_size": 4},
+                "model_kwargs": {"num_layers": [1, 1, 1, 1]}}
 
 
 def emit(obj) -> None:
@@ -460,6 +513,16 @@ def attention_b1(seed: int) -> list:
 # ----------------------------------------------------------------- phase 3
 
 
+def _weights_apart(grads, w):
+    """A CPE or CRPE backward op's outputs with its stacked (K·K + 1, C)
+    fp32 weight gradient split into dw (K, K, C) and db (C,), as the plain
+    backwards return them; A′'s (``w`` None) as they are."""
+    if w is None:
+        return grads
+    *image, dwb = grads
+    return (*image, dwb[:-1].view(w.shape), dwb[-1])
+
+
 def _compare_grads(got, want, dtype, n_image: int) -> dict:
     """Image-shaped gradients (the first ``n_image``) as ``compare``; dw, db
     (fp32 in both dtypes) relative to their largest value."""
@@ -497,7 +560,7 @@ def phase_backward(seed: int) -> dict:
                     scale = ch ** -0.5
                     g = torch.randn(BATCH, h * w, c, generator=gen).to("cuda", dtype)
                     args = (t["q"], t["k"], t["v"], g, ch, scale)
-                    run = lambda: fa._backward(*args)
+                    run = lambda: torch.ops.mdvit.factorized_attention_bwd(*args)
                     plain = lambda: fa.factorized_attention_bwd_ref(*args)
                     n_image, n_bytes, flops = 3, 7 * n_el * item, 10 * n_el * ch
                 else:
@@ -507,7 +570,7 @@ def phase_backward(seed: int) -> dict:
                     g_nchw = g.permute(0, 3, 1, 2)
                     if kind == "cpe_conv_bwd":
                         args = (t["x"], t["w"], g)
-                        run = lambda: dwconv._cpe_backward(*args)
+                        run = lambda: torch.ops.mdvit.cpe_conv_bwd(*args)
                         plain = lambda: dwconv.cpe_conv_bwd_ref(*args)
                         n_image = 1
                         n_bytes = 3 * n_el * item + 9 * c * item + 10 * c * 4
@@ -515,7 +578,7 @@ def phase_backward(seed: int) -> dict:
                         img = t["x"]
                     else:
                         args = (t["q"], t["v"], t["w"], t["b"], g)
-                        run = lambda: dwconv._crpe_backward(*args)
+                        run = lambda: torch.ops.mdvit.crpe_conv_bwd(*args)
                         plain = lambda: dwconv.crpe_conv_bwd_ref(*args)
                         n_image = 2
                         n_bytes = 5 * n_el * item + 50 * c * item + 50 * c * 4
@@ -529,7 +592,7 @@ def phase_backward(seed: int) -> dict:
                 got = run()
                 again = run()
                 torch.cuda.synchronize()
-                res = _compare_grads(got, plain(), dtype, n_image)
+                res = _compare_grads(_weights_apart(got, t.get("w")), plain(), dtype, n_image)
                 res["bit_equal_repeat"] = all(torch.equal(a, b) for a, b in zip(got, again))
                 res["ok"] &= res["bit_equal_repeat"]
                 with torch.no_grad():
@@ -568,8 +631,8 @@ def split(seed: int, reps: int = 10) -> list:
     """Device launches per call and device ms per launch, by device-kernel
     name, at each stage shape in fp32 and bf16 (``torch.profiler`` over
     ``reps`` calls of ``fa.factorized_attention`` under ``no_grad`` at B=16
-    and B=1, and of ``fa._backward``, ``dwconv._cpe_backward`` and
-    ``dwconv._crpe_backward`` at B=16, on the main path's inputs)."""
+    and B=1, and of the backward ops ``torch.ops.mdvit.*_bwd`` at B=16, on
+    the main path's inputs)."""
     gen = torch.Generator().manual_seed(seed + 11)
     kinds = [(FORWARD[0], BATCH), (FORWARD[0], B1), *((kind, BATCH) for kind in BACKWARD)]
     out = []
@@ -581,13 +644,14 @@ def split(seed: int, reps: int = 10) -> list:
             call = lambda: fa.factorized_attention(t["q"], t["k"], t["v"], ch, ch ** -0.5)
         elif kind == "factorized_attention_bwd":
             g = torch.randn(bsz, h * w, c, generator=gen).to("cuda", dtype)
-            call = lambda: fa._backward(t["q"], t["k"], t["v"], g, ch, ch ** -0.5)
+            call = lambda: torch.ops.mdvit.factorized_attention_bwd(t["q"], t["k"], t["v"], g,
+                                                                    ch, ch ** -0.5)
         elif kind == "cpe_conv_bwd":
             g = torch.randn(bsz, h, w, c, generator=gen).to("cuda", dtype)
-            call = lambda: dwconv._cpe_backward(t["x"], t["w"], g)
+            call = lambda: torch.ops.mdvit.cpe_conv_bwd(t["x"], t["w"], g)
         elif kind == "crpe_conv_bwd":
             g = torch.randn(bsz, h, w, c, generator=gen).to("cuda", dtype)
-            call = lambda: dwconv._crpe_backward(t["q"], t["v"], t["w"], t["b"], g)
+            call = lambda: torch.ops.mdvit.crpe_conv_bwd(t["q"], t["v"], t["w"], t["b"], g)
         with torch.no_grad():
             for _ in range(3):
                 call()
@@ -633,15 +697,17 @@ def split(seed: int, reps: int = 10) -> list:
 @contextlib.contextmanager
 def plain_versions(forward: bool = True):
     """Route the model's kernel calls to their plain PyTorch versions: the
-    backwards always, the forwards too unless ``forward`` is False. The
-    autograd Functions around them stay the same."""
-    patches = [(fa, "_backward", fa.factorized_attention_bwd_ref),
-               (dwconv, "_cpe_backward", dwconv.cpe_conv_bwd_ref),
-               (dwconv, "_crpe_backward", dwconv.crpe_conv_bwd_ref)]
+    backwards always, the forwards too unless ``forward`` is False. The ops'
+    CUDA implementations call the plain versions (the ops' CPU
+    implementations, which run on any device's tensors) in place of their
+    launches; the ops and their autograd stay the same."""
+    patches = [(fa, "_backward", fa._attention_bwd_cpu),
+               (dwconv, "_cpe_backward", dwconv._cpe_bwd_cpu),
+               (dwconv, "_crpe_backward", dwconv._crpe_bwd_cpu)]
     if forward:
-        patches += [(fa, "_forward", fa.factorized_attention_ref),
-                    (dwconv, "_cpe_forward", dwconv.cpe_conv_ref),
-                    (dwconv, "_crpe_forward", dwconv.crpe_conv_ref)]
+        patches += [(fa, "_forward", fa._attention_cpu),
+                    (dwconv, "_cpe_forward", dwconv._cpe_cpu),
+                    (dwconv, "_crpe_forward", dwconv._crpe_cpu)]
     with contextlib.ExitStack() as stack:
         for module, name, fn in patches:
             stack.enter_context(mock.patch.object(module, name, fn))
@@ -1358,6 +1424,219 @@ def phase_family_cli(seed: int) -> list:
     return out
 
 
+# ----------------------------------------------------------------- phase 9
+
+
+def _export_model(row: str, dtype, seed: int):
+    if row == "MDViT":
+        return build_mdvit(img_size=IMG, num_domains=TRAIN_D, dtype=dtype, device="cuda",
+                           seed=seed)
+    return _family_model(row, dtype, seed)
+
+
+def phase_export(seed: int) -> dict:
+    """``export.export_serving`` of each ``EXPORT_ROWS`` model at B=16 in fp32
+    and bf16 (random weights from ``--seed``, the family phase's BN
+    calibration), saved, loaded and run on the request batch: the artifact's
+    MB, export and load seconds, the loaded program's launches (every
+    counter, around one call), its bits against the live ``make_forward``
+    (must be equal), and both one's serving ms at B=16. Returns the
+    launches of the MDViT fp32 program's call."""
+    images, onehot = _requests(BATCH, seed)
+    x = normalize(images)
+    failures, launches_of = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for row, dtype in itertools.product(EXPORT_ROWS, (torch.float32, torch.bfloat16)):
+            name = str(dtype).replace("torch.", "")
+            model = _export_model(row, dtype, seed)
+            _calibrate_bn(model, x, onehot, FAMILY_BN_PASSES)
+            path = os.path.join(tmp, f"{row}_{name}.pt2")
+            t0 = time.perf_counter()
+            torch.export.save(export.export_serving(model, BATCH, IMG, TRAIN_D), path)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            program = export.load(path)
+            load_s = time.perf_counter() - t0
+            kernels.reset_launches()
+            got = export.run(program, images, onehot)
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            live = make_forward(model)
+            want = live(images, onehot)
+            served = _time_calls(lambda: export.run(program, images, onehot), BATCH,
+                                 EXPORT_TIMED, warmup=2)
+            served_live = _time_calls(lambda: live(images, onehot), BATCH, EXPORT_TIMED,
+                                      warmup=2)
+            rec = {"phase": "export", "row": row, "dtype": name, "B": BATCH, "img": IMG,
+                   "mb": os.path.getsize(path) / 1e6, "export_seconds": export_s,
+                   "load_seconds": load_s, "launches": launches,
+                   "max_abs_diff": (got.float() - want.float()).abs().max().item(),
+                   "bit_equal": bool(torch.equal(got, want)),
+                   "probs_ok": (tuple(got.shape) == (BATCH, IMG, IMG)
+                                and bool(torch.isfinite(got).all())),
+                   "program_ms_mean": served["latency_ms_mean"],
+                   "live_ms_mean": served_live["latency_ms_mean"]}
+            emit(rec)
+            launches_of[(row, name)] = launches
+            if not (rec["bit_equal"] and rec["probs_ok"]
+                    and launches == {k: 16 if k in FORWARD else 0 for k in launches}):
+                failures.append(rec)
+            os.remove(path)
+            del model, program, live, got, want
+            torch.cuda.empty_cache()
+    if failures:
+        raise RuntimeError(f"export checks failed: {failures}")
+    return launches_of[("MDViT", "float32")]
+
+
+# ----------------------------------------------------------------- phase 10
+
+
+def _remat_model(row: str, seed: int):
+    if row == "MDViT":
+        return build_mdvit(img_size=IMG, num_domains=TRAIN_D, dtype=torch.float32,
+                           device="cuda", seed=seed, drop_rate=0.1, drop_path_rate=0.1)
+    return _family_model(row, torch.float32, seed)
+
+
+def _rel_l2(a, b) -> float:
+    num = sum(((x - y).double() ** 2).sum().item() for x, y in zip(a, b))
+    den = sum((y.double() ** 2).sum().item() for y in b)
+    return (num / den) ** 0.5
+
+
+def remat_row(row: str, seed: int, batch_data) -> dict:
+    """One fp32 train step of ``row`` (dropout and stochastic depth 0.1, no
+    augmentation) with ``remat`` off and on, and a second plain step (the
+    control), from one state: every counter read around each step, the
+    losses, BN running stats and generator state (must be equal), the
+    relative L2 of the gradients and of the parameter updates against the
+    plain step's, the control's too; then step ms, device-busy ms and peak
+    memory of each, the peak read over the timed steps after the first
+    (AdamW's state made)."""
+    model = _remat_model(row, seed)
+    mkd = row.startswith("MDViT")
+    out = {}
+    for name, m in (("plain", copy.deepcopy(model)), ("control", copy.deepcopy(model)),
+                    ("remat", model)):
+        optimizer, scheduler = build_optimizer(m, TRAIN_N // TRAIN_B, load_config())
+        step = make_train_step(m, optimizer, scheduler, TRAIN_D, seed=seed, mkd=mkd,
+                               device_augment=False, remat=name == "remat")
+        params = list(m.parameters())
+        before = [p.detach().clone() for p in params]
+        kernels.reset_launches()
+        metrics = step(*batch_data)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        res = {"metrics": metrics, "launches": launches,
+               "update": [p.detach() - b for p, b in zip(params, before)],
+               "grads": [p.grad.detach().clone() for p in params],
+               "buffers": [b.clone() for b in m.buffers()],
+               "gen": step.generator.get_state()}
+        del before
+        if name == "control":  # the plain step's run-to-run spread only
+            out[name] = res
+            continue
+        call = lambda: step(*batch_data)
+        call()
+        _reset_peak()
+        resident = torch.cuda.memory_allocated()
+        t = _time_calls(call, TRAIN_D * TRAIN_B, REMAT_STEPS, warmup=0)
+        peak = torch.cuda.max_memory_allocated()
+        p = _profile_calls(call, reps=1, cpu=False)
+        res["speed"] = {"step_ms_mean": t["latency_ms_mean"], "step_ms_p50": t["latency_ms_p50"],
+                        "device_busy_ms": p["device_busy_ms"],
+                        "device_ops_per_step": p["device_ops_per_call"],
+                        "idle_share": 1 - p["device_busy_ms"] / t["latency_ms_mean"],
+                        "peak_mib": peak / 2 ** 20,
+                        "peak_over_resident_mib": (peak - resident) / 2 ** 20}
+        out[name] = res
+        del m, optimizer, step, call
+        torch.cuda.empty_cache()
+    plain, remat, control = out["plain"], out["remat"], out["control"]
+    fwd_pred, bwd_pred = REMAT[row]
+    rec = {"phase": "remat", "row": row, "dtype": "float32", "D": TRAIN_D, "B": TRAIN_B,
+           "img": IMG, "drop": 0.1,
+           "losses": {k: _losses(r["metrics"]) for k, r in out.items()},
+           "losses_equal": all(torch.equal(remat["metrics"][k], v)
+                               for k, v in plain["metrics"].items()),
+           "bn_stats_bit_equal": all(_same_bits(a, b) for a, b in
+                                     zip(remat["buffers"], plain["buffers"])),
+           "generator_equal": bool(torch.equal(remat["gen"], plain["gen"])),
+           "grad_l2_rel": _rel_l2(remat["grads"], plain["grads"]),
+           "update_l2_rel": _rel_l2(remat["update"], plain["update"]),
+           "control_grad_l2_rel": _rel_l2(control["grads"], plain["grads"]),
+           "control_update_l2_rel": _rel_l2(control["update"], plain["update"]),
+           "grad_l2_tol": GRAD_L2_TOL,
+           "launches": {k: r["launches"] for k, r in out.items()},
+           "predicted_launches": {"forward": fwd_pred, "backward": bwd_pred},
+           "speed": {k: out[k]["speed"] for k in ("plain", "remat")}}
+    rec["update_l2_limit"] = max(GRAD_L2_TOL, UPDATE_SPREAD * rec["control_update_l2_rel"])
+    rec["launches_as_predicted"] = (
+        remat["launches"] == {k: fwd_pred if k in FORWARD else bwd_pred for k in FORWARD + BACKWARD}
+        and plain["launches"] == {k: 16 if k in FORWARD else bwd_pred for k in FORWARD + BACKWARD})
+    return rec
+
+
+def phase_remat(seed: int) -> dict:
+    """``remat_row`` for each model of ``REMAT``; fails unless the losses,
+    the BN running stats and the generator state are equal, the updates
+    within ``GRAD_L2_TOL`` and the launches as predicted. Returns the MDViT
+    remat step's launches."""
+    images, masks = _stores(seed)
+    batch_data = (images, masks, torch.arange(TRAIN_B).repeat(TRAIN_D, 1).cuda())
+    failures, launches = [], None
+    for row in REMAT:
+        rec = remat_row(row, seed, batch_data)
+        emit(rec)
+        if row == "MDViT":
+            launches = rec["launches"]["remat"]
+        if not (rec["losses_equal"] and rec["bn_stats_bit_equal"] and rec["generator_equal"]
+                and rec["grad_l2_rel"] <= GRAD_L2_TOL
+                and rec["update_l2_rel"] <= rec["update_l2_limit"]
+                and rec["launches_as_predicted"]):
+            failures.append(row)
+    if failures:
+        raise RuntimeError(f"remat rows failed: {failures}")
+    return launches
+
+
+# ----------------------------------------------------------------- phase 11
+
+
+def phase_kfold_cli(seed: int) -> dict:
+    """The k-fold tools on the card: folds 0 and 1 through the training CLI
+    (``cli.main``), ``kfold_aggregate`` over both, ``summarize_run`` of fold
+    0, and the export CLI (``export.main --check``: the loaded program
+    bit-equal to the live forward) on fold 0's ``best.pt``."""
+    shutil.rmtree(KFOLD_DIR, ignore_errors=True)
+    KFOLD_DIR.mkdir(parents=True)
+    cfg = KFOLD_DIR / "card.yml"
+    cfg.write_text(json.dumps({"seed": seed, **KFOLD_CONFIG}))
+    exp_dirs = [str(KFOLD_DIR / f"fold{fold}") for fold in "01"]
+    out = KFOLD_DIR / "model.pt2"
+    with contextlib.redirect_stdout(sys.stderr):  # the CLIs' own prints
+        for fold, exp in enumerate(exp_dirs):
+            cli.main(["--exp_name", f"kf{fold}", "--model", "MDViT", "--config_yml", str(cfg),
+                      "--k_fold", str(fold), "--exp_dir", exp])
+        columns = kfold_aggregate.aggregate(exp_dirs)
+        summary = summarize_run.summarize(exp_dirs[0])
+        t0 = time.perf_counter()
+        export.main(["--ckpt_dir", exp_dirs[0], "--out", str(out), "--batch_size", "4",
+                     "--check"])
+        export_s = time.perf_counter() - t0
+    rec = {"phase": "kfold_cli", "img": KFOLD_IMG, "k_fold": columns,
+           "summary_epochs_run": summary["epochs_run"], "best_epoch": summary["best_epoch"],
+           "export_cli_seconds": export_s, "export_mb": out.stat().st_size / 1e6}
+    emit(rec)
+    shutil.rmtree(KFOLD_DIR, ignore_errors=True)
+    values = [v for k, col in columns.items() if k != "Name" for v in col]
+    if (columns["Name"] != ["isic2018", "PH2", "Total"] or not all(np.isfinite(values))
+            or summary["epochs_run"] != 1):
+        raise RuntimeError(f"k-fold tools on the card failed: {rec}")
+    return rec
+
+
 # ----------------------------------------------------------------- main
 
 
@@ -1391,12 +1670,18 @@ def main() -> int:
         summary = timed("kernels", phase_kernels, args.seed)
         summary.update(timed("backward", phase_backward, args.seed))
         timed("split", phase_split, args.seed)
-        timed("model", phase_model, args.seed)
+        serving_launches = timed("model", phase_model, args.seed)
         augment = timed("augment", phase_augment, args.seed)
-        timed("train", phase_train, args.seed, augment)
+        step_launches = timed("train", phase_train, args.seed, augment)
         trainer = timed("trainer", phase_trainer, args.seed)
         timed("family", phase_family, args.seed)
         timed("family_cli", phase_family_cli, args.seed)
+        export_launches = timed("export", phase_export, args.seed)
+        remat_launches = timed("remat", phase_remat, args.seed)
+        timed("kfold_cli", phase_kfold_cli, args.seed)
+    paths = {"serving B=16 fp32": serving_launches, "train step fp32": step_launches,
+             "Trainer.fit": trainer["launches"], "exported program B=16 fp32": export_launches,
+             "remat train step fp32": remat_launches}
     line = []
     for name in REPLACES:
         s = summary[name]
@@ -1408,6 +1693,7 @@ def main() -> int:
                      "per": f"one fp32 train step, D*B=16 at 256 ({calls} calls)",
                      "launches_per": "Trainer.fit, 2 epochs of 8 steps and 8 eval "
                                      "batches, bf16, D*B=16 at 256",
+                     "launches_by_path": {path: n[name] for path, n in paths.items()},
                      "bf16": s["bfloat16"]})
     emit({"phase": "done", "seconds": time.perf_counter() - t0, "by_phase": seconds})
     print(smi, flush=True)

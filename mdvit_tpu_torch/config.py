@@ -7,9 +7,9 @@ Differences from the JAX package:
   plain version (the tests' setting);
 * ``save_config`` writes JSON text, which YAML readers accept, and
   ``load_config`` imports ``yaml`` only for a user's file that is not JSON;
-* of the ``tpu`` block, ``compute_dtype``, ``device_augment``, ``device_eval``
-  and ``profile_steps`` act; ``xla_options`` and ``donate`` are XLA-only and
-  ignored; ``remat: true``, ``mesh.data`` above 1 and ``distributed`` raise
+* of the ``tpu`` block, ``compute_dtype``, ``device_augment``, ``device_eval``,
+  ``remat`` and ``profile_steps`` act; ``xla_options`` and ``donate`` are
+  XLA-only and ignored; ``mesh.data`` above 1 and ``distributed`` raise
   ``NotImplementedError`` (``check_supported``).
 """
 from __future__ import annotations
@@ -67,7 +67,7 @@ DEFAULT_CONFIG: dict[str, Any] = {
         "device_augment": True,  # augmentation inside the train step, on the card
         "device_eval": True,  # eval splits resident on the card; index rows only
         "donate": True,  # XLA-only, ignored
-        "remat": False,
+        "remat": False,  # recompute the forward's activations in the backward
         "xla_options": {"xla_tpu_scoped_vmem_limit_kib": "24576"},  # XLA-only, ignored
     },
     "log": {"every_steps": 10, "backend": "csv"},
@@ -108,9 +108,6 @@ def load_config(config_yml: str | None = None,
 def check_supported(cfg: DotDict) -> None:
     """Raise on the ``tpu`` settings the port does not run yet."""
     tpu = cfg.get("tpu") or {}
-    if tpu.get("remat"):
-        raise NotImplementedError(
-            "tpu.remat: activation recomputation is not ported (ROADMAP queue A, item 9)")
     if int((tpu.get("mesh") or {}).get("data", -1) or -1) > 1:
         raise NotImplementedError(
             "tpu.mesh.data > 1: data parallelism is not ported (ROADMAP queue A, item 6)")

@@ -5,24 +5,30 @@ Counterpart of ``mdvit_tpu/ops/pallas_dwconv.py``:
 * ``cpe_conv(x, w, b)``     → ``dwconv₃ₓ₃(x) + b + x``  (ConvPosEnc)
 * ``crpe_conv(q, v, w, b)`` → ``q · (dwconv₇ₓ₇(v) + b)`` (ConvRelPosEnc)
 
-Stride 1, zero SAME padding, w (K, K, C), b (C,). On a CUDA tensor each
-launches its tiled kernels of ``csrc/dwconv.cu`` (one launch forward, a fused
-tile kernel and a reduce backward); on a CPU tensor it runs its plain
-PyTorch versions (``cpe_conv_ref``/``cpe_conv_bwd_ref``,
-``crpe_conv_ref``/``crpe_conv_bwd_ref``), which sum the taps in the same
-order in fp32 and round once, as the Pallas kernels do.
+Stride 1, zero SAME padding, w (K, K, C), b (C,). Each is a ``torch.library``
+custom op (``mdvit::cpe_conv``, ``mdvit::crpe_conv``) with a backward op
+beside it (``mdvit::cpe_conv_bwd``, ``mdvit::crpe_conv_bwd``). On a CUDA
+tensor an op launches its tiled kernels of ``csrc/dwconv.cu`` (one launch
+forward, a fused tile kernel and a reduce backward); on a CPU tensor it runs
+its plain PyTorch version (``cpe_conv_ref``/``cpe_conv_bwd_ref``,
+``crpe_conv_ref``/``crpe_conv_bwd_ref``), which sums the taps in the same
+order in fp32 and rounds once, as the Pallas kernels do; under
+``torch.export`` or a fake tensor its fake gives the output's shape.
 
-When an input needs a gradient the call goes through an ``autograd.Function``
-(the Pallas ``custom_vjp``): the image-shaped gradients are dwconvs with the
-flipped kernel, and dw, db are fp32 sums over batch and space, cast to w's
-dtype as ``_cpe_vjp_bwd``/``_crpe_vjp_bwd`` do. Without one (serving under
-``no_grad``) the forward is called directly.
+The forward ops' registered autograd (the Pallas ``custom_vjp``) calls the
+backward op: the image-shaped gradients are dwconvs with the flipped kernel,
+and dw, db are fp32 sums over batch and space. The backward op returns them
+stacked as one (K·K + 1, C) fp32 tensor (an op's outputs may not alias each
+other); the autograd formula splits it and casts dw, db to w's and b's
+dtypes, as ``_cpe_vjp_bwd``/``_crpe_vjp_bwd`` do. The backward ops have no
+autograd of their own: a double backward raises. Importing this module
+registers the ops and builds nothing; the first CUDA call builds the kernels.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.autograd.function import once_differentiable
+from torch import Tensor
 
 from mdvit_tpu_torch.ops import kernels
 
@@ -145,8 +151,6 @@ def _check_int32(name, *views):
 
 
 def _cpe_forward(x, w, b):
-    if x.device.type == "cpu":
-        return cpe_conv_ref(x, w, b)
     _check_grid("cpe_conv", 3, w, b, x)
     _check_int32("cpe_conv", x)
     bsz, h, wd, c = x.shape
@@ -163,8 +167,6 @@ def _cpe_forward(x, w, b):
 
 
 def _cpe_backward(x, w, g):
-    if x.device.type == "cpu":
-        return cpe_conv_bwd_ref(x, w, g)
     g = g.contiguous()
     _check_grid("cpe_conv_bwd", 3, w, None, x, g)
     _check_int32("cpe_conv_bwd", x, g)
@@ -180,12 +182,10 @@ def _cpe_backward(x, w, g):
             _copy_bytes(x, g, dx), _stream())
     kernels.check_status("cpe_conv_bwd", status)
     kernels.LAUNCHES["cpe_conv_bwd"] += 1
-    return dx, total[:9].view(3, 3, c), total[9]
+    return dx, total
 
 
 def _crpe_forward(q, v, w, b):
-    if q.device.type == "cpu":
-        return crpe_conv_ref(q, v, w, b)
     _check_grid("crpe_conv", 7, w, b, q, v)
     _check_int32("crpe_conv", q, v)
     bsz, h, wd, c = q.shape
@@ -203,8 +203,6 @@ def _crpe_forward(q, v, w, b):
 
 
 def _crpe_backward(q, v, w, b, g):
-    if q.device.type == "cpu":
-        return crpe_conv_bwd_ref(q, v, w, b, g)
     g = g.contiguous()
     _check_grid("crpe_conv_bwd", 7, w, b, q, v, g)
     _check_int32("crpe_conv_bwd", q, v, g)
@@ -222,55 +220,124 @@ def _crpe_backward(q, v, w, b, g):
             v.stride(0), v.stride(2), _copy_bytes(q, v, g, dq, dv), _stream())
     kernels.check_status("crpe_conv_bwd", status)
     kernels.LAUNCHES["crpe_conv_bwd"] += 1
-    return dq, dv, total[:49].view(7, 7, c), total[49]
+    return dq, dv, total
 
 
-class _CpeConv(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, w, b):
-        ctx.save_for_backward(x, w)
-        ctx.b_dtype = b.dtype
-        return _cpe_forward(x, w, b)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        dx, dw, db = _cpe_backward(x, w, g)
-        return dx, dw.to(w.dtype), db.to(ctx.b_dtype)
+# ---------------------------------------------------------------- the ops
+# The CUDA implementations look ``_cpe_forward`` … ``_crpe_backward`` up when
+# called. The backward ops return dw and db as one (K·K + 1, C) fp32 tensor.
 
 
-class _CrpeConv(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, v, w, b):
-        ctx.save_for_backward(q, v, w, b)
-        return _crpe_forward(q, v, w, b)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, g):
-        q, v, w, b = ctx.saved_tensors
-        dq, dv, dw, db = _crpe_backward(q, v, w, b, g)
-        return dq, dv, dw.to(w.dtype), db.to(b.dtype)
+def _stacked(dw: Tensor, db: Tensor) -> Tensor:
+    return torch.cat([dw.reshape(-1, dw.shape[-1]), db[None]])
 
 
-def _needs_grad(*tensors) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-
-
-def cpe_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``dwconv₃ₓ₃(x) + b + x``; x (B, H, W, C) → contiguous (B, H, W, C)."""
-    if _needs_grad(x, w, b):
-        return _CpeConv.apply(x, w, b)
+@torch.library.custom_op("mdvit::cpe_conv", mutates_args=(), device_types="cuda")
+def _cpe_op(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
     return _cpe_forward(x, w, b)
 
 
-def crpe_conv(q: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
-              b: torch.Tensor) -> torch.Tensor:
+@_cpe_op.register_kernel("cpu")
+def _cpe_cpu(x, w, b):
+    return cpe_conv_ref(x, w, b).contiguous()
+
+
+@_cpe_op.register_fake
+def _cpe_fake(x, w, b):
+    return x.new_empty(x.shape)
+
+
+@torch.library.custom_op("mdvit::cpe_conv_bwd", mutates_args=(), device_types="cuda")
+def _cpe_bwd_op(x: Tensor, w: Tensor, g: Tensor) -> tuple[Tensor, Tensor]:
+    return _cpe_backward(x, w, g)
+
+
+@_cpe_bwd_op.register_kernel("cpu")
+def _cpe_bwd_cpu(x, w, g):
+    dx, dw, db = cpe_conv_bwd_ref(x, w, g)
+    return dx.contiguous(), _stacked(dw, db)
+
+
+@_cpe_bwd_op.register_fake
+def _cpe_bwd_fake(x, w, g):
+    k, c = w.shape[0], x.shape[3]
+    return x.new_empty(x.shape), x.new_empty((k * k + 1, c), dtype=torch.float32)
+
+
+@torch.library.custom_op("mdvit::crpe_conv", mutates_args=(), device_types="cuda")
+def _crpe_op(q: Tensor, v: Tensor, w: Tensor, b: Tensor) -> Tensor:
+    return _crpe_forward(q, v, w, b)
+
+
+@_crpe_op.register_kernel("cpu")
+def _crpe_cpu(q, v, w, b):
+    return crpe_conv_ref(q, v, w, b).contiguous()
+
+
+@_crpe_op.register_fake
+def _crpe_fake(q, v, w, b):
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op("mdvit::crpe_conv_bwd", mutates_args=(), device_types="cuda")
+def _crpe_bwd_op(q: Tensor, v: Tensor, w: Tensor, b: Tensor,
+                 g: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    return _crpe_backward(q, v, w, b, g)
+
+
+@_crpe_bwd_op.register_kernel("cpu")
+def _crpe_bwd_cpu(q, v, w, b, g):
+    dq, dv, dw, db = crpe_conv_bwd_ref(q, v, w, b, g)
+    return dq.contiguous(), dv.contiguous(), _stacked(dw, db)
+
+
+@_crpe_bwd_op.register_fake
+def _crpe_bwd_fake(q, v, w, b, g):
+    k, c = w.shape[0], q.shape[3]
+    return (q.new_empty(q.shape), q.new_empty(q.shape),
+            q.new_empty((k * k + 1, c), dtype=torch.float32))
+
+
+def _split(dwb: Tensor, w: Tensor, b_dtype: torch.dtype) -> tuple[Tensor, Tensor]:
+    """dw (K, K, C) in w's dtype and db (C,) in ``b_dtype`` of a stacked
+    (K·K + 1, C) fp32 weight gradient."""
+    return dwb[:-1].reshape(w.shape).to(w.dtype), dwb[-1].to(b_dtype)
+
+
+def _cpe_setup(ctx, inputs, output):
+    x, w, b = inputs
+    ctx.save_for_backward(x, w)
+    ctx.b_dtype = b.dtype
+
+
+def _cpe_grad(ctx, g):
+    x, w = ctx.saved_tensors
+    dx, dwb = torch.ops.mdvit.cpe_conv_bwd(x, w, g)
+    return (dx, *_split(dwb, w, ctx.b_dtype))
+
+
+def _crpe_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _crpe_grad(ctx, g):
+    q, v, w, b = ctx.saved_tensors
+    dq, dv, dwb = torch.ops.mdvit.crpe_conv_bwd(q, v, w, b, g)
+    return (dq, dv, *_split(dwb, w, b.dtype))
+
+
+_cpe_op.register_autograd(_cpe_grad, setup_context=_cpe_setup)
+_crpe_op.register_autograd(_crpe_grad, setup_context=_crpe_setup)
+
+
+def cpe_conv(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
+    """``dwconv₃ₓ₃(x) + b + x``; x (B, H, W, C) → contiguous (B, H, W, C)."""
+    return torch.ops.mdvit.cpe_conv(x, w, b)
+
+
+def crpe_conv(q: Tensor, v: Tensor, w: Tensor, b: Tensor) -> Tensor:
     """``q · (dwconv₇ₓ₇(v) + b)``; q, v (B, H, W, C) → contiguous (B, H, W, C).
 
     q and v may be strided views with unit channel stride (e.g. slices of a
     (B, H, W, 3C) projection); no copy is made."""
-    if _needs_grad(q, v, w, b):
-        return _CrpeConv.apply(q, v, w, b)
-    return _crpe_forward(q, v, w, b)
+    return torch.ops.mdvit.crpe_conv(q, v, w, b)

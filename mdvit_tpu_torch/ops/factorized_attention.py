@@ -1,22 +1,25 @@
 """Factorized attention ``scale · q_h · (softmaxₙ(k_h)ᵀ v_h)`` per head.
 
-Counterpart of ``mdvit_tpu/ops/pallas_attention.py``. ``factorized_attention``
-launches the CUDA kernels of ``csrc/factorized_attention.cu`` on a CUDA tensor
-and runs the plain PyTorch versions (``factorized_attention_ref``,
-``factorized_attention_bwd_ref``) on a CPU tensor. All take the softmax over
-the N tokens in fp32, accumulate in fp32 and round once to the input dtype,
-as the Pallas kernels do.
+Counterpart of ``mdvit_tpu/ops/pallas_attention.py``. The kernel and its
+backward are the ``torch.library`` custom ops ``mdvit::factorized_attention``
+and ``mdvit::factorized_attention_bwd``: on a CUDA tensor each launches its
+kernels of ``csrc/factorized_attention.cu``, on a CPU tensor it runs its
+plain PyTorch version (``factorized_attention_ref``,
+``factorized_attention_bwd_ref``), and under ``torch.export`` or a fake
+tensor its fake gives the output's shape and dtype. All take the softmax
+over the N tokens in fp32, accumulate in fp32 and round once to the input
+dtype, as the Pallas kernels do.
 
-When an input needs a gradient the call goes through ``_FactorizedAttention``
-(an ``autograd.Function``, as the Pallas kernel's ``custom_vjp``): its
-backward recomputes the softmax from the saved q, k, v, so no (B, N, C)
-softmax is kept for the backward. Without one (serving under ``no_grad``)
-the forward is called directly, with no autograd bookkeeping.
+The forward op's registered autograd (the Pallas kernel's ``custom_vjp``)
+saves q, k, v and calls the backward op, which recomputes the softmax, so no
+(B, N, C) softmax is kept for the backward. The backward op has no autograd
+of its own: a double backward raises. Importing this module registers the
+ops and builds nothing; the first CUDA call builds the kernels.
 """
 from __future__ import annotations
 
 import torch
-from torch.autograd.function import once_differentiable
+from torch import Tensor
 
 from mdvit_tpu_torch.ops import kernels
 
@@ -108,8 +111,6 @@ def _forward(q, k, v, ch, scale):
 def _backward(q, k, v, g, ch, scale):
     """Two launches: per-chunk fp32 partials into a workspace, then the apply
     pass that folds them in a fixed order and writes dq, dk, dv."""
-    if q.device.type == "cpu":
-        return factorized_attention_bwd_ref(q, k, v, g, ch, scale)
     _check(q, k, v, ch)
     if g.device != q.device or g.dtype != q.dtype or g.shape != q.shape:
         raise ValueError("factorized_attention backward: the output gradient "
@@ -132,27 +133,62 @@ def _backward(q, k, v, g, ch, scale):
     return dq, dk, dv
 
 
-class _FactorizedAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, ch, scale):
-        ctx.save_for_backward(q, k, v)
-        ctx.ch, ctx.scale = ch, scale
-        return _forward(q, k, v, ch, scale)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
-        dq, dk, dv = _backward(q, k, v, g, ctx.ch, ctx.scale)
-        return dq, dk, dv, None, None
 
 
-def factorized_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         ch: int, scale: float) -> torch.Tensor:
+# ---------------------------------------------------------------- the ops
+# The CUDA implementations look ``_forward``/``_backward`` up when called.
+
+
+@torch.library.custom_op("mdvit::factorized_attention", mutates_args=(),
+                         device_types="cuda")
+def _attention_op(q: Tensor, k: Tensor, v: Tensor, ch: int, scale: float) -> Tensor:
+    return _forward(q, k, v, ch, scale)
+
+
+@_attention_op.register_kernel("cpu")
+def _attention_cpu(q, k, v, ch, scale):
+    return factorized_attention_ref(q, k, v, ch, scale).contiguous()
+
+
+@_attention_op.register_fake
+def _attention_fake(q, k, v, ch, scale):
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op("mdvit::factorized_attention_bwd", mutates_args=(),
+                         device_types="cuda")
+def _attention_bwd_op(q: Tensor, k: Tensor, v: Tensor, g: Tensor, ch: int,
+                      scale: float) -> tuple[Tensor, Tensor, Tensor]:
+    return _backward(q, k, v, g, ch, scale)
+
+
+@_attention_bwd_op.register_kernel("cpu")
+def _attention_bwd_cpu(q, k, v, g, ch, scale):
+    return tuple(d.contiguous() for d in factorized_attention_bwd_ref(q, k, v, g, ch, scale))
+
+
+@_attention_bwd_op.register_fake
+def _attention_bwd_fake(q, k, v, g, ch, scale):
+    return tuple(q.new_empty(q.shape) for _ in range(3))
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, ctx.ch, ctx.scale = inputs
+    ctx.save_for_backward(q, k, v)
+
+
+def _grad(ctx, g):
+    q, k, v = ctx.saved_tensors
+    dq, dk, dv = torch.ops.mdvit.factorized_attention_bwd(q, k, v, g, ctx.ch, ctx.scale)
+    return dq, dk, dv, None, None
+
+
+_attention_op.register_autograd(_grad, setup_context=_setup_context)
+
+
+def factorized_attention(q: Tensor, k: Tensor, v: Tensor, ch: int, scale: float) -> Tensor:
     """q, k, v (B, N, C) → (B, N, C) contiguous, in the input dtype.
 
     q, k and v may be strided views (e.g. slices of a (B, N, 3C) projection)
     with unit channel stride and equal strides; no copy is made."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FactorizedAttention.apply(q, k, v, ch, scale)
-    return _forward(q, k, v, ch, scale)
+    return torch.ops.mdvit.factorized_attention(q, k, v, ch, scale)

@@ -13,10 +13,16 @@ in the ``state_dict``): each sample's affine, and in eval its running stats,
 are gathered by its one-hot; in train mode each present domain's running
 stats take one momentum step towards its own moments, and an absent domain's
 stay as they are.
+
+Inside ``running_stats_frozen()`` a train-mode BatchNorm normalises as
+always but writes no running stats: the recompute of an activation
+checkpoint (``tpu.remat``) runs the forward again, and the stats must take
+the batch's moments once, from the first forward, as JAX's do.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import contextlib
+from typing import Iterator, NamedTuple
 
 import torch
 from torch import nn
@@ -24,6 +30,19 @@ from torch import nn
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
 LN_EPS = 1e-6
+
+_frozen = 0  # depth of running_stats_frozen()
+
+
+@contextlib.contextmanager
+def running_stats_frozen() -> Iterator[None]:
+    """Train-mode BatchNorms leave their running stats as they are."""
+    global _frozen
+    _frozen += 1
+    try:
+        yield
+    finally:
+        _frozen -= 1
 
 
 class NormSpec(NamedTuple):
@@ -109,25 +128,27 @@ class DomainBatchNorm(nn.Module):
         elif self.group_stats:
             oh = _onehot(x, domain_onehot, self.num_domains)
             mean_b, var_b, *moments = _group_moments(xf, oh)
-            with torch.no_grad():
-                dmean, dvar_unb, present = _running_targets(*moments)
-                # the reference's D sequential updates of the shared running
-                # stats, in domain order; absent domains leave them as they are
-                m = BN_MOMENTUM
-                mean, var = self.running_mean.clone(), self.running_var.clone()
-                for d in range(oh.shape[1]):
-                    p = present[d]
-                    mean = (1 - m * p) * mean + m * p * dmean[d]
-                    var = (1 - m * p) * var + m * p * dvar_unb[d]
-                self.running_mean.copy_(mean)
-                self.running_var.copy_(var)
+            if not _frozen:
+                with torch.no_grad():
+                    dmean, dvar_unb, present = _running_targets(*moments)
+                    # the reference's D sequential updates of the shared running
+                    # stats, in domain order; absent domains leave them as they are
+                    m = BN_MOMENTUM
+                    mean, var = self.running_mean.clone(), self.running_var.clone()
+                    for d in range(oh.shape[1]):
+                        p = present[d]
+                        mean = (1 - m * p) * mean + m * p * dmean[d]
+                        var = (1 - m * p) * var + m * p * dvar_unb[d]
+                    self.running_mean.copy_(mean)
+                    self.running_var.copy_(var)
             y = (xf - mean_b) * torch.rsqrt(var_b + BN_EPS)
         else:
             mean, var, var_unb = _joint_moments(xf)
-            with torch.no_grad():
-                m = BN_MOMENTUM
-                self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
-                self.running_var.copy_((1 - m) * self.running_var + m * var_unb)
+            if not _frozen:
+                with torch.no_grad():
+                    m = BN_MOMENTUM
+                    self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+                    self.running_var.copy_((1 - m) * self.running_var + m * var_unb)
             y = (xf - mean) * torch.rsqrt(var + BN_EPS)
         y = y * self.weight + self.bias
         return y.to(x.dtype)
@@ -181,17 +202,18 @@ class DomainBatchNormDSN(nn.ModuleList):
                 mean_b, var_b, *moments = _group_moments(xf, oh)
             else:  # every domain's stats take the joint moments (norm.py:162-167)
                 mean_b, var_b, var_unb = _joint_moments(xf)
-            with torch.no_grad():
-                if self.group_stats:
-                    dmean, dvar_unb, present = _running_targets(*moments)
-                    step = BN_MOMENTUM * present                # (D, 1)
-                else:
-                    dmean, dvar_unb, step = mean_b, var_unb, BN_MOMENTUM
-                new_mean = (1 - step) * ra_mean + step * dmean
-                new_var = (1 - step) * ra_var + step * dvar_unb
-                for d, s in enumerate(self):
-                    s.running_mean.copy_(new_mean[d])
-                    s.running_var.copy_(new_var[d])
+            if not _frozen:
+                with torch.no_grad():
+                    if self.group_stats:
+                        dmean, dvar_unb, present = _running_targets(*moments)
+                        step = BN_MOMENTUM * present                # (D, 1)
+                    else:
+                        dmean, dvar_unb, step = mean_b, var_unb, BN_MOMENTUM
+                    new_mean = (1 - step) * ra_mean + step * dmean
+                    new_var = (1 - step) * ra_var + step * dvar_unb
+                    for d, s in enumerate(self):
+                        s.running_mean.copy_(new_mean[d])
+                        s.running_var.copy_(new_var[d])
             y = (xf - mean_b) * torch.rsqrt(var_b + BN_EPS)
         w, b = _gather_affine(self, oh, x)
         return (y * w + b).to(x.dtype)

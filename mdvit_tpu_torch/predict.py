@@ -76,17 +76,31 @@ def save_mask(path_base: str, mask: np.ndarray, prob: np.ndarray | None) -> None
         np.save(path_base + "_prob.npy", prob)
 
 
+class Serving(torch.nn.Module):
+    """``(images 0..255 NHWC f32, onehot (B, D) f32) → sigmoid probability
+    maps (B, H, W)`` from the primary head of any ported model: the eval
+    preprocessing, the eval-mode forward without debranches, the sigmoid.
+    ``make_forward`` runs it; ``export`` exports it."""
+
+    def __init__(self, model: torch.nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, x: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
+        out = self.model(normalize(x), onehot, train=False, aux_mode="none")
+        return torch.sigmoid(split_seg(out["seg"])[0].float())[..., 0]
+
+
 def make_forward(model: torch.nn.Module) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
-    """``(images 0..255 NHWC, onehot) → sigmoid probability maps (B, H, W)``
-    from the primary head of any ported model, as
-    ``scripts/predict.py:make_forward``. Runs with TF32 off (``no_tf32``),
-    whatever the caller's flags say."""
+    """``Serving(model)`` as a function, as ``scripts/predict.py:make_forward``.
+    Runs without autograd and with TF32 off (``no_tf32``), whatever the
+    caller's flags say."""
+    serve = Serving(model)
 
     @torch.no_grad()
     @no_tf32()
     def forward(x: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
-        out = model(normalize(x), onehot, train=False, aux_mode="none")
-        return torch.sigmoid(split_seg(out["seg"])[0].float())[..., 0]
+        return serve(x, onehot)
 
     return forward
 

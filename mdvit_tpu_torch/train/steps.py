@@ -20,20 +20,34 @@ sum of the per-domain segmentation losses, in one pull.
 The step augments on the device by default (``device_augment``, as in JAX),
 drawing from a generator on the model's device (``step.aug_generator``);
 dropout draws from a CPU generator (``step.generator``). A checkpoint saves
-and restores both. The eval step (``make_eval_step``) returns masked overlap
-counts and a masked fp32 loss of a padded batch. Neither step reads a device
-value on the host.
+and restores both.
+
+``remat`` (``tpu.remat``, JAX's ``jax.checkpoint`` around the whole model
+forward) runs the model call under a non-reentrant
+``torch.utils.checkpoint``: its activations are dropped after the forward
+and recomputed in the backward, once a pull (one more forward per pull).
+Each recompute replays the forward's dropout seeds (``gen`` restarts from
+its state at forward entry, and is left where the recompute found it) and
+writes no BatchNorm running stats (``norm.running_stats_frozen``), so the
+step's numbers, running stats and generator state are the plain step's.
+
+The eval step (``make_eval_step``) returns masked overlap counts and a
+masked fp32 loss of a padded batch. Neither step reads a device value on
+the host.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Sequence
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from mdvit_tpu_torch.data.augment import augment_batch
 from mdvit_tpu_torch.data.loader import eval_transform, gather_batch
 from mdvit_tpu_torch.device import no_tf32
 from mdvit_tpu_torch.models.base import split_seg
+from mdvit_tpu_torch.ops.norm import running_stats_frozen
 from mdvit_tpu_torch.train.losses import _SMOOTH, bce_with_logits, dice_loss
 
 
@@ -70,10 +84,29 @@ def per_domain_losses(logits: torch.Tensor, aux_logits: torch.Tensor,
     return torch.stack(seg), torch.stack(aux), torch.stack(kt), dice, iou
 
 
+class _Recompute:
+    """The recompute context of a checkpointed forward, entered once a
+    backward pull: ``gen`` replays the forward's draws from ``entry`` and is
+    restored on exit, and the norms write no running stats."""
+
+    def __init__(self, gen: torch.Generator, entry: torch.Tensor):
+        self.gen, self.entry = gen, entry
+
+    def __enter__(self) -> None:
+        self.resume = self.gen.get_state()
+        self.gen.set_state(self.entry)
+        self.frozen = running_stats_frozen()
+        self.frozen.__enter__()
+
+    def __exit__(self, *exc) -> None:
+        self.frozen.__exit__(*exc)
+        self.gen.set_state(self.resume)
+
+
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     scheduler, num_domains: int, alpha: float = 0.5,
                     det_sup: bool = True, mkd: bool = True, seed: int = 0,
-                    device_augment: bool = True
+                    device_augment: bool = True, remat: bool = False
                     ) -> Callable[..., dict[str, torch.Tensor]]:
     """``step(images, masks, indices) → metrics``: one train step of ``model``
     on the batch that ``indices`` (D, B) selects from the per-domain uint8
@@ -83,7 +116,8 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     (``step.generator``), the augmentation from one on the model's device
     (``step.aug_generator``, same seed). Metrics are device tensors with the
     JAX step's names; reading them is the caller's choice. The step runs
-    with TF32 off (``no_tf32``), whatever the caller's flags say."""
+    with TF32 off (``no_tf32``), whatever the caller's flags say. ``remat``
+    recomputes the model's activations in the backward (module docstring)."""
     named = list(model.named_parameters())
     params = [p for _, p in named]
     masked = [i for i, (n, _) in enumerate(named) if "domain_layer" in n]
@@ -102,8 +136,18 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
             x, y = augment_batch(aug_gen, x_raw, m_raw)
         else:
             x, y = eval_transform(x_raw, m_raw)
-        out = model(x, onehot, train=True, aux_mode="grouped" if mkd else "none",
-                    gen=gen)
+
+        def forward(x, onehot):
+            return model(x, onehot, train=True, aux_mode="grouped" if mkd else "none",
+                         gen=gen)
+
+        if remat:
+            entry = gen.get_state()
+            out = checkpoint(forward, x, onehot, use_reentrant=False,
+                             context_fn=lambda: (contextlib.nullcontext(),
+                                                 _Recompute(gen, entry)))
+        else:
+            out = forward(x, onehot)
         logits, aux_logits = split_seg(out["seg"])
         if mkd:
             seg_d, aux_d, kt_d, dice_d, iou_d = per_domain_losses(

@@ -169,7 +169,8 @@ class Trainer:
             alpha=float(config.train.get("alpha", 0.5)),
             det_sup=bool(config.train.get("det_sup", True)), mkd=self.mkd,
             seed=int(config.get("seed", 42)),
-            device_augment=device_augment and bool(config.data.train_aug))
+            device_augment=device_augment and bool(config.data.train_aug),
+            remat=bool(config.tpu.get("remat", False)))
         self.device_eval = bool(config.tpu.get("device_eval", True))
         self._eval_stores: dict[str, EvalSplitStore] = {}
         self.eval_step = make_eval_step(self.model, mkd=self.mkd,

@@ -172,8 +172,7 @@ def test_save_config_is_json_and_reloads(tmp_path):
     assert read == cfg.to_dict()
 
 
-@pytest.mark.parametrize("tpu", [{"remat": True}, {"mesh": {"data": 2}},
-                                 {"distributed": True}])
+@pytest.mark.parametrize("tpu", [{"mesh": {"data": 2}}, {"distributed": True}])
 def test_unported_tpu_settings_raise(tpu):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tconfig.check_supported(tconfig.load_config(overrides={"tpu": tpu}))

@@ -31,6 +31,13 @@ def _need_card():
         pytest.skip("needs a CUDA card")
 
 
+def _weights_apart(grads, w):
+    """A CPE or CRPE backward op's outputs with its stacked (K·K + 1, C)
+    fp32 weight gradient split into dw (K, K, C) and db (C,)."""
+    *image, dwb = grads
+    return (*image, dwb[:-1].view(w.shape), dwb[-1])
+
+
 # kernel vs plain version, both fp32 inside: fp32 differs in summation order
 # (and FMA contraction); bf16 by a rounding step of the output
 GPU_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
@@ -110,9 +117,9 @@ def test_model_forward_on_card_goes_through_the_kernels():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c,ch", STAGE_C_CH)
 def test_backward_kernels_match_plain_on_card(c, ch, dtype):
-    """The three autograd Functions on the card: gradients through the
-    backward kernels against the plain backwards on the same inputs, and
-    dw/db the same bits on a second call (no atomics)."""
+    """The three forward ops' registered autograd on the card: gradients
+    through the backward kernels against the plain backwards on the same
+    inputs, and dw/db the same bits on a second call (no atomics)."""
     _need_card()
     rs = np.random.RandomState(c + 7)
 
@@ -239,8 +246,8 @@ def test_attention_bwd_split_matches_plain_on_card(case, dtype):
     g = wide.to("cuda", dtype)[..., c:]
     assert not g.is_contiguous()
     kernels.reset_launches()
-    got = fa._backward(q, k, v, g, ch, ch ** -0.5)
-    again = fa._backward(q, k, v, g, ch, ch ** -0.5)
+    got = torch.ops.mdvit.factorized_attention_bwd(q, k, v, g, ch, ch ** -0.5)
+    again = torch.ops.mdvit.factorized_attention_bwd(q, k, v, g, ch, ch ** -0.5)
     torch.cuda.synchronize()
     want = fa.factorized_attention_bwd_ref(q, k, v, g, ch, ch ** -0.5)
     for a, e in zip(got, want):
@@ -327,8 +334,8 @@ def test_crpe_tiled_kernels_match_plain_on_card(shape, dtype):
     kernels.reset_launches()
     torch.testing.assert_close(dwconv.crpe_conv(q, v, w, b).float(),
                                dwconv.crpe_conv_ref(q, v, w, b).float(), **GPU_TOL[dtype])
-    got = dwconv._crpe_backward(q, v, w, b, g)
-    again = dwconv._crpe_backward(q, v, w, b, g)
+    got = _weights_apart(torch.ops.mdvit.crpe_conv_bwd(q, v, w, b, g), w)
+    again = _weights_apart(torch.ops.mdvit.crpe_conv_bwd(q, v, w, b, g), w)
     torch.cuda.synchronize()
     want = dwconv.crpe_conv_bwd_ref(q, v, w, b, g)
     for a, e in zip(got[:2], want[:2]):
@@ -361,8 +368,8 @@ def test_cpe_tiled_kernels_match_plain_on_card(shape, dtype):
     for x in (wide[..., c:2 * c].contiguous(), wide[..., c:2 * c]):
         torch.testing.assert_close(dwconv.cpe_conv(x, w, b).float(),
                                    dwconv.cpe_conv_ref(x, w, b).float(), **GPU_TOL[dtype])
-        got = dwconv._cpe_backward(x, w, g)
-        again = dwconv._cpe_backward(x, w, g)
+        got = _weights_apart(torch.ops.mdvit.cpe_conv_bwd(x, w, g), w)
+        again = _weights_apart(torch.ops.mdvit.cpe_conv_bwd(x, w, g), w)
         torch.cuda.synchronize()
         want = dwconv.cpe_conv_bwd_ref(x, w, g)
         torch.testing.assert_close(got[0].float(), want[0].float(), **GPU_TOL[dtype])
@@ -448,3 +455,66 @@ def test_trainer_debug_run_on_card_launches_all_kernels(tmp_path):
         rows = list(csv.DictReader(f))
     assert [r["Name"] for r in rows][-1] == "Total" and len(rows) == 5
     assert all(np.isfinite(float(r[k])) for r in rows for k in ("loss", "Di_score", "IOU"))
+
+
+def _op_inputs(name: str, c: int, ch: int, dtype) -> tuple:
+    """A stage's op arguments (B=2, 16×16 grid): q, k, v slices of one
+    projection, leaves needing grad for the forward ops."""
+    gen = torch.Generator().manual_seed(c)
+    bwd = name.endswith("_bwd")
+
+    def t(*shape, std=1.0, grad=False):
+        a = (torch.randn(*shape, generator=gen) * std).to("cuda", dtype)
+        return a.requires_grad_(grad and not bwd)
+
+    kind = name.removesuffix("_bwd")
+    if kind == "factorized_attention":
+        qkv = t(2, 256, 3 * c, grad=True)
+        args = (qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:])
+        return args + ((t(2, 256, c),) if bwd else ()) + (ch, ch ** -0.5)
+    if kind == "cpe_conv":
+        x, w = t(2, 16, 16, c, grad=True), t(3, 3, c, std=0.5, grad=True)
+        return (x, w, t(2, 16, 16, c)) if bwd else (x, w, t(c, std=0.1, grad=True))
+    qkv = t(2, 16, 16, 3 * c, grad=True)
+    args = (qkv[..., :c], qkv[..., 2 * c:], t(7, 7, c, std=0.2, grad=True),
+            t(c, std=0.1, grad=True))
+    return args + (t(2, 16, 16, c),) if bwd else args
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", FORWARD + BACKWARD)
+def test_opcheck_on_card(name, dtype):
+    """``torch.library.opcheck`` of each op on CUDA tensors at stage 2's
+    width (C = 320, ch = 40): schema, fake against the kernel, autograd
+    registration, the op under ``aot_autograd``."""
+    _need_card()
+    with no_tf32():
+        torch.library.opcheck(getattr(torch.ops.mdvit, name).default,
+                              _op_inputs(name, 320, 40, dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_exported_forward_is_the_live_forward_on_card(dtype, tmp_path):
+    """The full-width MDViT at 256² (B = 2, random weights): the program
+    ``mdvit_tpu_torch.export`` saves, loaded, gives the live forward's bits,
+    through 16 launches of each forward kernel."""
+    from mdvit_tpu_torch import export
+    from mdvit_tpu_torch.models.registry import build_mdvit
+    from mdvit_tpu_torch.predict import make_forward
+
+    _need_card()
+    model = build_mdvit(img_size=256, num_domains=4, dtype=dtype, device="cuda", seed=0)
+    path = str(tmp_path / "mdvit.pt2")
+    torch.export.save(export.export_serving(model, 2, 256, 4), path)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randint(0, 256, (2, 256, 256, 3), generator=gen).float().cuda()
+    oh = torch.eye(4, device="cuda")[[1, 3]]
+    program = export.load(path)
+    kernels.reset_launches()
+    got = export.run(program, x, oh)
+    torch.cuda.synchronize()
+    assert _counts(FORWARD) == {n: 16 for n in FORWARD}
+    assert _counts(BACKWARD) == {n: 0 for n in BACKWARD}
+    assert torch.equal(got, make_forward(model)(x, oh))

@@ -191,14 +191,16 @@ def test_cpu_tensors_count_no_launch():
 
 def test_package_imports_no_jax():
     """Every module of the port imports without JAX, flax or the JAX
-    package; the training CLI also without pandas and PyYAML."""
+    package; the training CLI, the export and the k-fold tools also without
+    pandas and PyYAML."""
     pkg = os.path.join(REPO, "mdvit_tpu_torch")
     modules = sorted(
         "mdvit_tpu_torch." + os.path.relpath(os.path.join(root, f), pkg)[:-3]
         .replace(os.sep, ".").removesuffix(".__init__")
         for root, _, files in os.walk(pkg) for f in files if f.endswith(".py"))
     assert "mdvit_tpu_torch.train.trainer" in modules and len(modules) > 25
-    code = ("import importlib, sys; import mdvit_tpu_torch.cli; "
+    code = ("import importlib, sys; import mdvit_tpu_torch.cli, mdvit_tpu_torch.export, "
+            "mdvit_tpu_torch.kfold_aggregate, mdvit_tpu_torch.summarize_run; "
             "third = [m for m in sys.modules if m.split('.')[0] in ('pandas', 'yaml')]; "
             "assert not third, third; "
             f"[importlib.import_module(m) for m in {modules!r}]; "

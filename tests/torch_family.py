@@ -138,7 +138,7 @@ def no_debranch_dropout():
         yield
 
 
-def jax_step(model, variables, data, mkd: bool, num_domains: int = D):
+def jax_step(model, variables, data, mkd: bool, num_domains: int = D, remat: bool = False):
     """One JAX train step (``make_train_step(device_augment=False)``) with
     ``optax.sgd(1.0)``: the gradients are the parameters' change. Returns
     grads and new batch stats in port names, and the metrics."""
@@ -148,7 +148,7 @@ def jax_step(model, variables, data, mkd: bool, num_domains: int = D):
                        batch_stats=variables["batch_stats"],
                        opt_state=tx.init(variables["params"]), rng=jax.random.PRNGKey(1))
     step = jax_make_train_step(model, tx, num_domains, mkd=mkd, device_augment=False,
-                               donate=False)
+                               donate=False, remat=remat)
     with no_debranch_dropout():
         new_state, metrics = step(state, tuple(map(jnp.asarray, images)),
                                   tuple(map(jnp.asarray, masks)), jnp.asarray(indices))
@@ -199,17 +199,18 @@ def check_batch_stats(want: dict, model: torch.nn.Module) -> None:
                                    **LOSS_TOL)
 
 
-def train_case(row: str, img: int, b: int, d: int = D, seed: int = 1):
+def train_case(row: str, img: int, b: int, d: int = D, seed: int = 1, remat: bool = False):
     """One train step of ``row`` on both sides from the same variables and
-    batch (``b`` per domain): the JAX results, the port's model after its
-    step, its gradients and its metrics."""
+    batch (``b`` per domain), with activation recomputation on both when
+    ``remat``: the JAX results, the port's model after its step, its
+    gradients and its metrics."""
     rs = np.random.RandomState(seed)
     images, masks = stores(rs, img, d=d)
     data = (images, masks, rs.randint(0, 3, (d, b)).astype(np.int32))
     model = jax_model(row, img, num_domains=d)
     oh = jnp.repeat(jnp.eye(d, dtype=jnp.float32), b, 0)
     variables = random_variables(model, jnp.zeros((d * b, img, img, 3)), oh)
-    want = jax_step(model, variables, data, is_mkd(row), num_domains=d)
+    want = jax_step(model, variables, data, is_mkd(row), num_domains=d, remat=remat)
     port = port_model(row, variables, img, num_domains=d)
-    grads, metrics = port_step(port, data, is_mkd(row), num_domains=d)
+    grads, metrics = port_step(port, data, is_mkd(row), num_domains=d, remat=remat)
     return want, port, grads, metrics
