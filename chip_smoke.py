@@ -94,20 +94,38 @@ Phases, each printing JSON lines; any failure exits non-zero:
             augmentation) with ``remat`` off and on from one state: the
             counters around each step (MDViT 48 / 31, BASE 32 / 16), equal
             losses, bit-equal BN running stats and generator state, the
-            gradients' relative L2 within ``GRAD_L2_TOL`` and the
-            parameter updates' within ``GRAD_L2_TOL`` or twice a second
-            plain step's (the control); step ms, device-busy ms and peak
-            memory of each;
+            gradients' and the parameter updates' relative L2 within
+            ``GRAD_L2_TOL``, and a second plain step (the control) bit-equal
+            to the first; step ms, device-busy ms and peak memory of each;
 11. kfold_cli two folds of the training CLI (MDViT, full width, one block
             a stage, img 64, bf16, debug), ``kfold_aggregate`` and
             ``summarize_run`` over them, and the export CLI with
             ``--check`` on fold 0's ``best.pt``;
-12. the ``kernels`` line (launches from the trainer's ``fit``, and by path
+12. determinism  the separable resize against ``F.interpolate``'s forward
+            at 64² → 256² (within 1e-6 of the largest value) and what
+            ``F.interpolate``'s backward does under
+            ``torch.use_deterministic_algorithms``; then for MDViT and BASE
+            in fp32 and bf16 two train steps (augmentation on) from one
+            state with ``device.deterministic`` on (gradients, updates,
+            losses and BN stats must be bit-equal) and off, and each
+            setting's step ms and device-busy ms;
+13. dp       data parallelism (the flagship step, fp32, augmentation and
+            dropout on, SGD): an NCCL group of one against no group
+            (bit-equal), then two gloo ranks spawned on the one card, 8 rows
+            each, against one process (loss and BN running stats within
+            1e-5 relative, gradients and updates within ``GRAD_L2_TOL``,
+            replicas bit-equal, 16 / 31 launches a rank) and the step ms of
+            each;
+14. the ``kernels`` line (launches from the trainer's ``fit``, and by path
    under ``launches_by_path``), the card's name and power limit, and last
    the ``{"ok": true, "device": ...}`` line. Each phase prints its seconds.
 
+``--dp-cards`` runs only the build and the dp phase, with one NCCL rank on
+each visible card (a host of several cards) in place of the gloo ranks.
+
 Every phase runs with TF32 off (``device.no_tf32``), as the entry points
-do, so the direct model calls and cuDNN's library times are full fp32 too.
+do, so the direct model calls and cuDNN's library times are full fp32 too;
+the entry points also run under ``device.deterministic``.
 The kernels are reached through their custom ops (``torch.ops.mdvit.*``),
 the model's only route to them.
 It imports nothing of JAX and nothing of the JAX package.
@@ -118,6 +136,7 @@ import argparse
 import contextlib
 import copy
 import csv
+import functools
 import itertools
 import json
 import os
@@ -141,14 +160,16 @@ from mdvit_tpu_torch.config import load_config
 from mdvit_tpu_torch.data.augment import augment_batch, augment_raw, sample_aug_params
 from mdvit_tpu_torch.data.loader import gather_batch
 from mdvit_tpu_torch.data.preprocess import normalize
-from mdvit_tpu_torch.device import no_tf32
+from mdvit_tpu_torch.device import deterministic, no_tf32
 from mdvit_tpu_torch.models.base import split_seg
 from mdvit_tpu_torch.models.registry import build_mdvit, build_model
 from mdvit_tpu_torch.ops import dwconv, kernels
 from mdvit_tpu_torch.ops import factorized_attention as fa
 from mdvit_tpu_torch.ops.layers import fast_normal, fast_uniform
+from mdvit_tpu_torch.ops.resize import resize_bilinear
 from mdvit_tpu_torch.predict import load_experiment, make_forward
 from mdvit_tpu_torch.train import checkpoints as ckpt
+from mdvit_tpu_torch.train import steps as steps_module
 from mdvit_tpu_torch.train.optim import build_optimizer
 from mdvit_tpu_torch.train.steps import make_train_step
 from mdvit_tpu_torch.train.trainer import Trainer
@@ -283,15 +304,6 @@ EXPORT_TIMED = 10
 # with the Sup gate pulls twice: 16 × 3 forward, 16 + 15 backward; BASE once)
 REMAT = {"MDViT": (48, 31), "BASE": (32, 16)}
 REMAT_STEPS = 3
-# remat against plain, parameter updates: AdamW's first update is
-# lr·g/(|g| + 1e-8) a weight, so every weight whose gradient is cancellation
-# noise (a conv bias ahead of a BatchNorm) moves by ±lr at the noise's sign,
-# which cuDNN's backward does not keep from run to run. On an H100 the
-# gradients of a remat and a plain MDViT step read 7e-7 apart and their
-# updates 4.2e-3. So the updates are held to GRAD_L2_TOL or to this many
-# times the gap between two plain steps from the same state (the control),
-# whichever is larger; the gradients to GRAD_L2_TOL
-UPDATE_SPREAD = 2.0
 # the kfold_cli phase: two folds of the CLI (debug: one step, one eval batch
 # a domain) of MDViT at full width with one block a stage, img 64, bf16, then
 # the aggregate, the summary and the export CLI's check on fold 0
@@ -302,6 +314,27 @@ KFOLD_CONFIG = {"debug": True,
                          "synthetic_sizes": {"isic2018": [8, 4], "PH2": [8, 4]}},
                 "train": {"num_epochs": 1, "batch_size": 2}, "test": {"batch_size": 4},
                 "model_kwargs": {"num_layers": [1, 1, 1, 1]}}
+# the determinism phase: the models whose step (augmentation on, dropout
+# 0.1) is taken twice from one state with device.deterministic on (the
+# control must read 0) and off, in fp32 and bf16; the row whose steps are
+# timed (in alternating pairs, after 3 warm-up pairs) and profiled in each
+# setting, and the pairs timed
+DETERMINISM_ROWS = ("MDViT", "BASE")
+DETERMINISM_COST_ROW = "MDViT"
+DETERMINISM_PAIRS = 4
+# the separable resize against F.interpolate's forward, relative to the
+# largest value, at the logits' 64² → 256²
+RESIZE_REL_TOL = 1e-6
+# the dp phase: the flagship step (fp32, augmentation and dropout on) with
+# SGD as JAX's sharding test takes it; DP_WORLD gloo ranks on the one card,
+# each its D·B / DP_WORLD rows; the loss and the BN running stats held to
+# DP_REL_TOL of their scale (sums in another order), the gradients and
+# updates to GRAD_L2_TOL; steps timed in each setting
+DP_WORLD = 2
+DP_LR = 1e-2
+DP_REL_TOL = 1e-5
+DP_TIMED = 3
+DP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_dp"
 
 
 def emit(obj) -> None:
@@ -1571,7 +1604,6 @@ def remat_row(row: str, seed: int, batch_data) -> dict:
            "launches": {k: r["launches"] for k, r in out.items()},
            "predicted_launches": {"forward": fwd_pred, "backward": bwd_pred},
            "speed": {k: out[k]["speed"] for k in ("plain", "remat")}}
-    rec["update_l2_limit"] = max(GRAD_L2_TOL, UPDATE_SPREAD * rec["control_update_l2_rel"])
     rec["launches_as_predicted"] = (
         remat["launches"] == {k: fwd_pred if k in FORWARD else bwd_pred for k in FORWARD + BACKWARD}
         and plain["launches"] == {k: 16 if k in FORWARD else bwd_pred for k in FORWARD + BACKWARD})
@@ -1580,9 +1612,10 @@ def remat_row(row: str, seed: int, batch_data) -> dict:
 
 def phase_remat(seed: int) -> dict:
     """``remat_row`` for each model of ``REMAT``; fails unless the losses,
-    the BN running stats and the generator state are equal, the updates
-    within ``GRAD_L2_TOL`` and the launches as predicted. Returns the MDViT
-    remat step's launches."""
+    the BN running stats and the generator state are equal, the gradients
+    and updates within ``GRAD_L2_TOL``, the control 0 (the step repeats its
+    bits, ``device.deterministic``) and the launches as predicted. Returns
+    the MDViT remat step's launches."""
     images, masks = _stores(seed)
     batch_data = (images, masks, torch.arange(TRAIN_B).repeat(TRAIN_D, 1).cuda())
     failures, launches = [], None
@@ -1593,7 +1626,8 @@ def phase_remat(seed: int) -> dict:
             launches = rec["launches"]["remat"]
         if not (rec["losses_equal"] and rec["bn_stats_bit_equal"] and rec["generator_equal"]
                 and rec["grad_l2_rel"] <= GRAD_L2_TOL
-                and rec["update_l2_rel"] <= rec["update_l2_limit"]
+                and rec["update_l2_rel"] <= GRAD_L2_TOL
+                and rec["control_grad_l2_rel"] == 0.0 and rec["control_update_l2_rel"] == 0.0
                 and rec["launches_as_predicted"]):
             failures.append(row)
     if failures:
@@ -1637,12 +1671,279 @@ def phase_kfold_cli(seed: int) -> dict:
     return rec
 
 
+# ----------------------------------------------------------------- phase 12
+
+
+@contextlib.contextmanager
+def _nondeterministic():
+    """PyTorch's defaults (nondeterministic algorithms allowed, cuDNN's
+    nondeterministic algorithms, no autotuning), for a step built while it
+    stands in for ``device.deterministic``."""
+    flags = (torch.are_deterministic_algorithms_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(flags[0])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags[1:]
+
+
+def _control_model(row: str, dtype, seed: int):
+    if row == "MDViT":
+        return build_mdvit(img_size=IMG, num_domains=TRAIN_D, dtype=dtype, device="cuda",
+                           seed=seed, drop_rate=0.1, drop_path_rate=0.1)
+    return _family_model(row, dtype, seed)
+
+
+def _control_step(model, seed: int, determinism: bool):
+    """The model's own train step with augmentation (AdamW, the default
+    config), built with ``device.deterministic`` or PyTorch's defaults."""
+    optimizer, scheduler = build_optimizer(model, TRAIN_N // TRAIN_B, load_config())
+    with contextlib.nullcontext() if determinism else mock.patch.object(
+            steps_module, "deterministic", _nondeterministic):
+        return make_train_step(model, optimizer, scheduler, TRAIN_D, seed=seed,
+                               mkd=model.config["name"].startswith("MDViT"))
+
+
+def _step_result(model, step, batch_data) -> dict:
+    params = list(model.parameters())
+    before = [p.detach().clone() for p in params]
+    metrics = step(*batch_data)
+    torch.cuda.synchronize()
+    return {"metrics": metrics, "grads": [p.grad.detach().clone() for p in params],
+            "update": [p.detach() - b for p, b in zip(params, before)],
+            "buffers": [b.clone() for b in model.buffers()]}
+
+
+def control_row(row: str, dtype, seed: int, batch_data) -> dict:
+    """Two steps from one state, with the setting on and off: the gap
+    between the two (relative L2 of gradients and updates; whether losses
+    and BN stats are bit-equal); for the flagship (``DETERMINISM_COST_ROW``)
+    then the two settings' steps, each on its second step's model, timed in
+    alternating pairs (step ms, and the median of the pairs' differences)
+    and profiled (device-busy ms)."""
+    model = _control_model(row, dtype, seed)
+    rec = {"phase": "determinism", "row": row, "dtype": str(dtype).replace("torch.", ""),
+           "D": TRAIN_D, "B": TRAIN_B, "img": IMG, "augment": True, "drop": 0.1}
+    calls = {}
+    for key in ("on", "off"):
+        runs = []
+        for _ in range(2):
+            m = copy.deepcopy(model)
+            step = _control_step(m, seed, key == "on")
+            runs.append(_step_result(m, step, batch_data))
+        a, b = runs
+        rec[key] = {
+            "grad_l2_rel": _rel_l2(a["grads"], b["grads"]),
+            "update_l2_rel": _rel_l2(a["update"], b["update"]),
+            "losses_bit_equal": all(_same_bits(v, b["metrics"][k])
+                                    for k, v in a["metrics"].items()),
+            "bn_stats_bit_equal": all(_same_bits(x, y)
+                                      for x, y in zip(a["buffers"], b["buffers"])),
+            "losses": _losses(a["metrics"])}
+        del runs, a, b
+        if row == DETERMINISM_COST_ROW:
+            calls[key] = (m, functools.partial(step, *batch_data))
+        del m, step
+    if calls:
+        t_on, t_off, extra = _time_pairs(calls["on"][1], calls["off"][1], TRAIN_D * TRAIN_B,
+                                         DETERMINISM_PAIRS)
+        for key, t in (("on", t_on), ("off", t_off)):
+            p = _profile_calls(calls[key][1], reps=1, cpu=False)
+            rec[key].update(step_ms=t["latency_ms_mean"], step_ms_p50=t["latency_ms_p50"],
+                            device_busy_ms=p["device_busy_ms"],
+                            device_ops_per_step=p["device_ops_per_call"], top=p["top"])
+        rec["step_ms_on_minus_off_median"] = extra
+        rec["busy_cost_share"] = rec["on"]["device_busy_ms"] / rec["off"]["device_busy_ms"] - 1
+    del calls
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _interpolate_backward_probe() -> dict:
+    """``F.interpolate``'s bilinear backward, the op the separable resize
+    replaced, at the logits' 64² → 256² (C = 1) and the MLPFM debranch's
+    8² → 64² (C = 512), B = 16: whether it raises under
+    ``device.deterministic`` (the error's first line), and whether two
+    backwards give the same bits with the setting and with PyTorch's
+    defaults."""
+    out = {}
+    for c, src, dst in ((1, 64, 256), (512, 8, 64)):
+        gen = torch.Generator().manual_seed(c)
+        x = torch.randn(TRAIN_D * TRAIN_B, c, src, src, generator=gen).cuda().requires_grad_()
+        g = torch.randn(TRAIN_D * TRAIN_B, c, dst, dst, generator=gen).cuda()
+
+        def grad():
+            y = F.interpolate(x, size=(dst, dst), mode="bilinear", align_corners=False)
+            return torch.autograd.grad(y, x, g)[0]
+
+        rec = {"raises_under_determinism": None}
+        with _nondeterministic():
+            a, b = grad(), grad()
+        rec["repeats_by_default"] = _same_bits(a, b)
+        with deterministic():
+            try:
+                a, b = grad(), grad()
+                rec["repeats_under_determinism"] = _same_bits(a, b)
+            except RuntimeError as exc:  # the finding recorded: the op refuses
+                rec["raises_under_determinism"] = str(exc).splitlines()[0][:300]
+        out[f"{src}->{dst} C={c}"] = rec
+    return out
+
+
+def phase_determinism(seed: int) -> list:
+    """The train step repeats its bits (ROADMAP C.1): ``control_row`` for
+    MDViT and BASE in fp32 and bf16, which must read 0 with the setting on;
+    the separable resize against ``F.interpolate``'s forward at 256²; and
+    whether ``F.interpolate``'s backward runs under the setting."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(TRAIN_D * TRAIN_B, IMG // 4, IMG // 4, 1, generator=gen).cuda()
+    got = resize_bilinear(x, (IMG, IMG))
+    want = F.interpolate(x.permute(0, 3, 1, 2), size=(IMG, IMG), mode="bilinear",
+                         align_corners=False).permute(0, 2, 3, 1)
+    resize = {"phase": "determinism_resize", "shape": list(x.shape), "to": [IMG, IMG],
+              "max_rel_err": (got - want).abs().max().item() / want.abs().max().item(),
+              "tol_rel": RESIZE_REL_TOL,
+              "interpolate_backward": _interpolate_backward_probe()}
+    emit(resize)
+    images, masks = _stores(seed)
+    batch_data = (images, masks, torch.arange(TRAIN_B).repeat(TRAIN_D, 1).cuda())
+    recs, failures = [], []
+    for row in DETERMINISM_ROWS:
+        for dtype in (torch.float32, torch.bfloat16):
+            rec = control_row(row, dtype, seed, batch_data)
+            emit(rec)
+            recs.append(rec)
+            on = rec["on"]
+            if not (on["grad_l2_rel"] == 0.0 and on["update_l2_rel"] == 0.0
+                    and on["losses_bit_equal"] and on["bn_stats_bit_equal"]):
+                failures.append((row, rec["dtype"]))
+    if failures or not resize["max_rel_err"] <= RESIZE_REL_TOL:
+        raise RuntimeError(f"determinism failed: {failures}, resize {resize['max_rel_err']}")
+    return recs
+
+
+# ----------------------------------------------------------------- phase 13
+
+
+def _dp_model(seed: int):
+    return build_mdvit(img_size=IMG, num_domains=TRAIN_D, dtype=torch.float32, device="cuda",
+                       seed=seed, drop_rate=0.1, drop_path_rate=0.1)
+
+
+def _dp_run(seed: int, group) -> dict:
+    """One flagship step (augmentation on, SGD) of a fresh seeded model in
+    ``group`` (None: one process): launches, metrics, BN stats, gradients
+    and updates on the host; then ``DP_TIMED`` more steps timed."""
+    model = _dp_model(seed)
+    optimizer = torch.optim.SGD(model.parameters(), lr=DP_LR)
+    scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, lambda _: 1.0)
+    step = make_train_step(model, optimizer, scheduler, TRAIN_D, seed=seed, group=group)
+    images, masks = _stores(seed)
+    batch = (images, masks, torch.arange(TRAIN_B).repeat(TRAIN_D, 1).cuda())
+    kernels.reset_launches()
+    res = _step_result(model, step, batch)
+    res["launches"] = dict(kernels.LAUNCHES)
+    res = ckpt.to_host(res)
+    lat = []
+    for _ in range(DP_TIMED):
+        if group is not None:
+            torch.distributed.barrier(group=group)
+        t0 = time.perf_counter()
+        step(*batch)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    res["step_ms"] = lat
+    return res
+
+
+def _dp_rank(rank: int, seed: int, store: str, out: str, world: int, backend: str) -> None:
+    """A rank of the dp phase's group: ``_dp_run`` of its rows, saved to
+    ``out/rank<r>.pt``; gloo ranks share card 0, an NCCL rank takes card r."""
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    torch.distributed.init_process_group(backend, init_method=f"file://{store}", rank=rank,
+                                         world_size=world)
+    try:
+        with no_tf32():
+            res = _dp_run(seed, torch.distributed.group.WORLD)
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _rel_max(a: torch.Tensor, b: torch.Tensor) -> float:
+    return (a.double() - b.double()).abs().max().item() / max(b.abs().max().item(), 1e-30)
+
+
+def phase_dp(seed: int, world: int = DP_WORLD, backend: str = "gloo") -> dict:
+    """Data parallelism on the card: (1) an NCCL group of one against no
+    group (bit-equal losses, BN stats, gradients and updates); (2) ``world``
+    ranks spawned (gloo: all on card 0; NCCL, with ``--dp-cards``: one a
+    card) against one process: the loss and the BN running stats within
+    ``DP_REL_TOL``, gradients and updates within ``GRAD_L2_TOL``, the
+    replicas bit-equal, 16 / 31 launches a rank; (3) the step ms of both,
+    recorded. Returns rank 0's launches."""
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    DP_DIR.mkdir(parents=True)
+    single = _dp_run(seed, None)
+    torch.distributed.init_process_group("nccl", init_method=f"file://{DP_DIR / 'nccl'}",
+                                         rank=0, world_size=1)
+    try:
+        one = _dp_run(seed, torch.distributed.group.WORLD)
+    finally:
+        torch.distributed.destroy_process_group()
+    same = lambda a, b: all(_same_bits(x, y) for x, y in zip(a, b))  # noqa: E731
+    group_of_one = {
+        "losses_bit_equal": same(one["metrics"].values(), single["metrics"].values()),
+        "bn_stats_bit_equal": same(one["buffers"], single["buffers"]),
+        "grads_bit_equal": same(one["grads"], single["grads"]),
+        "updates_bit_equal": same(one["update"], single["update"]),
+        "launches": one["launches"]}
+    torch.multiprocessing.start_processes(
+        _dp_rank, args=(seed, str(DP_DIR / backend), str(DP_DIR), world, backend),
+        nprocs=world, join=True, start_method="spawn")
+    ranks = [torch.load(DP_DIR / f"rank{r}.pt", weights_only=False) for r in range(world)]
+    r0 = ranks[0]
+    expected = {k: 16 if k in FORWARD else 31 for k in FORWARD + BACKWARD}
+    rec = {"phase": "dp", "world": world, "backend": backend, "D": TRAIN_D, "B": TRAIN_B,
+           "img": IMG, "rows_per_rank": TRAIN_D * TRAIN_B // world, "optimizer": "sgd",
+           "augment": True, "drop": 0.1, "group_of_one_nccl": group_of_one,
+           "loss_rel_err": max(_rel_max(r0["metrics"][k], single["metrics"][k])
+                               for k in ("loss", "aux_loss", "kt_loss")),
+           "bn_stats_rel_err": max(_rel_max(a, b) for a, b in
+                                   zip(r0["buffers"], single["buffers"])
+                                   if a.is_floating_point()),
+           "grad_l2_rel": _rel_l2(r0["grads"], single["grads"]),
+           "update_l2_rel": _rel_l2(r0["update"], single["update"]),
+           "replicas_bit_equal": all(same(r["update"], r0["update"]) for r in ranks[1:]),
+           "launches_per_rank": [r["launches"] for r in ranks], "expected_launches": expected,
+           "step_ms": {"one_process": single["step_ms"],
+                       **{f"rank{i}": r["step_ms"] for i, r in enumerate(ranks)}},
+           "tol": {"rel": DP_REL_TOL, "grad_l2": GRAD_L2_TOL}}
+    emit(rec)
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    if not (all(group_of_one[k] for k in ("losses_bit_equal", "bn_stats_bit_equal",
+                                          "grads_bit_equal", "updates_bit_equal"))
+            and group_of_one["launches"] == expected and single["launches"] == expected
+            and rec["loss_rel_err"] <= DP_REL_TOL and rec["bn_stats_rel_err"] <= DP_REL_TOL
+            and rec["grad_l2_rel"] <= GRAD_L2_TOL and rec["update_l2_rel"] <= GRAD_L2_TOL
+            and rec["replicas_bit_equal"]
+            and all(r["launches"] == expected for r in ranks)):
+        raise RuntimeError(f"dp phase failed: {json.dumps(rec)[:2000]}")
+    return r0["launches"]
+
+
 # ----------------------------------------------------------------- main
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dp-cards", action="store_true",
+                    help="only the build and the dp phase, its ranks NCCL, one a visible "
+                    "card (a host of several cards)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1666,6 +1967,14 @@ def main() -> int:
         return out
 
     timed("build", phase_build)
+    if args.dp_cards:
+        with no_tf32():
+            timed("dp", phase_dp, args.seed, torch.cuda.device_count(), "nccl")
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     with no_tf32():
         summary = timed("kernels", phase_kernels, args.seed)
         summary.update(timed("backward", phase_backward, args.seed))
@@ -1679,9 +1988,12 @@ def main() -> int:
         export_launches = timed("export", phase_export, args.seed)
         remat_launches = timed("remat", phase_remat, args.seed)
         timed("kfold_cli", phase_kfold_cli, args.seed)
+        timed("determinism", phase_determinism, args.seed)
+        dp_launches = timed("dp", phase_dp, args.seed)
     paths = {"serving B=16 fp32": serving_launches, "train step fp32": step_launches,
              "Trainer.fit": trainer["launches"], "exported program B=16 fp32": export_launches,
-             "remat train step fp32": remat_launches}
+             "remat train step fp32": remat_launches,
+             f"dp train step fp32, rank 0 of {DP_WORLD}": dp_launches}
     line = []
     for name in REPLACES:
         s = summary[name]

@@ -7,16 +7,18 @@ Differences from the JAX package:
   plain version (the tests' setting);
 * ``save_config`` writes JSON text, which YAML readers accept, and
   ``load_config`` imports ``yaml`` only for a user's file that is not JSON;
-* of the ``tpu`` block, ``compute_dtype``, ``device_augment``, ``device_eval``,
+* of the ``tpu`` block, ``mesh.data`` (the cap on the data-parallel group),
+  ``distributed`` (torchrun's multi-node rendezvous; ``check_supported``
+  raises without it), ``compute_dtype``, ``device_augment``, ``device_eval``,
   ``remat`` and ``profile_steps`` act; ``xla_options`` and ``donate`` are
-  XLA-only and ignored; ``mesh.data`` above 1 and ``distributed`` raise
-  ``NotImplementedError`` (``check_supported``).
+  XLA-only and ignored.
 """
 from __future__ import annotations
 
 import argparse
 import copy
 import json
+import os
 from typing import Any
 
 from mdvit_tpu_torch.utils.pieces import DotDict, read_yaml
@@ -62,7 +64,7 @@ DEFAULT_CONFIG: dict[str, Any] = {
                     "use_one_hot": True, "num_domains": 4},
     "kt": {"ensemble_method": "att"},
     "tpu": {
-        "mesh": {"data": -1},  # one card: -1, 0 and 1 all mean no mesh
+        "mesh": {"data": -1},  # cap on the data-parallel ranks; -1 and 0: all
         "compute_dtype": "bfloat16",  # 'bfloat16' | 'float32'
         "device_augment": True,  # augmentation inside the train step, on the card
         "device_eval": True,  # eval splits resident on the card; index rows only
@@ -106,14 +108,14 @@ def load_config(config_yml: str | None = None,
 
 
 def check_supported(cfg: DotDict) -> None:
-    """Raise on the ``tpu`` settings the port does not run yet."""
-    tpu = cfg.get("tpu") or {}
-    if int((tpu.get("mesh") or {}).get("data", -1) or -1) > 1:
-        raise NotImplementedError(
-            "tpu.mesh.data > 1: data parallelism is not ported (ROADMAP queue A, item 6)")
-    if tpu.get("distributed"):
-        raise NotImplementedError(
-            "tpu.distributed: multi-host training is not ported (ROADMAP queue A, item 6)")
+    """Raise on ``tpu`` settings this process cannot honour:
+    ``tpu.distributed`` joins the process group that torchrun's environment
+    describes (``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR``, ...), so it needs
+    that environment."""
+    if (cfg.get("tpu") or {}).get("distributed") and "WORLD_SIZE" not in os.environ:
+        raise RuntimeError(
+            "tpu.distributed: no torchrun environment (WORLD_SIZE); launch with "
+            "torchrun --nnodes=... --nproc_per_node=... -m mdvit_tpu_torch.cli")
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -139,7 +141,7 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="write a torch.profiler trace of this many train steps "
                    "to <exp_dir>/profile")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-host training (not ported: raises)")
+                   help="multi-node data parallelism: join torchrun's rendezvous")
     return p
 
 

@@ -13,7 +13,10 @@ on the device from the step's generator (no host sync), and
 ``augment_with_params`` is deterministic in its inputs. JAX's threefry stream
 cannot be matched, so the tests drive the second half with the values JAX
 draws. The noise hashes counters with the same code as dropout
-(``ops/layers.py:fast_normal``).
+(``ops/layers.py:fast_normal``). Under data parallelism
+(``parallel.mesh.current_shard()``) a rank draws the global batch's
+parameters, keeps its rows, and hashes its rows' global noise counters, so
+its rows are augmented as the unsharded step augments them.
 
 The warp is the exact per-pixel sampler of the JAX package
 (``_affine_sample``, ``_rotation_matrix``, ``_reflect101``) batched with
@@ -32,6 +35,7 @@ import torch
 
 from mdvit_tpu_torch.data.preprocess import normalize
 from mdvit_tpu_torch.ops.layers import fast_normal
+from mdvit_tpu_torch.parallel.mesh import current_shard
 
 AugParams = dict[str, torch.Tensor]
 
@@ -148,7 +152,8 @@ def augment_raw(images: torch.Tensor, masks: torch.Tensor, params: AugParams):
     def per_sample(t: torch.Tensor) -> torch.Tensor:
         return t.view(b, 1, 1, 1)
 
-    noise = fast_normal(params["noise_seed"], images.shape, images.device)
+    first = current_shard().row0 * math.prod(images.shape[1:])
+    noise = fast_normal(params["noise_seed"], images.shape, images.device, first=first)
     noise = noise * torch.sqrt(per_sample(params["noise_var"]))
     x = torch.where(per_sample(params["noise_apply"]), noise, 0.0)
     x = torch.floor(torch.clamp(images + x, 0.0, 255.0))
@@ -175,6 +180,10 @@ def augment_with_params(images: torch.Tensor, masks: torch.Tensor, params: AugPa
 
 def augment_batch(gen: torch.Generator, images: torch.Tensor, masks: torch.Tensor):
     """Train-time augmentation with every draw from ``gen`` on the images'
-    device: (normalised images, labels (B, H, W, 1))."""
-    params = sample_aug_params(gen, images.shape[0], images.device)
+    device: (normalised images, labels (B, H, W, 1)). In a shard of a larger
+    batch the draws are the whole batch's and ``images`` its shard's rows."""
+    shard, b = current_shard(), images.shape[0]
+    params = sample_aug_params(gen, shard.total or b, images.device)
+    params = {k: v if k == "noise_seed" else v[shard.row0:shard.row0 + b]
+              for k, v in params.items()}
     return augment_with_params(images, masks, params)

@@ -16,6 +16,7 @@ import torch
 
 from mdvit_tpu_torch.data.datasets import DomainArrays
 from mdvit_tpu_torch.data.preprocess import normalize
+from mdvit_tpu_torch.parallel.mesh import domain_slices
 
 
 class DeviceDomainStore:
@@ -67,16 +68,22 @@ class RoundRobinSampler:
 
 
 def gather_batch(store_images: Sequence[torch.Tensor],
-                 store_masks: Sequence[torch.Tensor], indices: torch.Tensor
+                 store_masks: Sequence[torch.Tensor], indices: torch.Tensor,
+                 rows: tuple[int, int] | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Stack D per-domain batches from uint8 stores into one domain-contiguous
     (D·B, S, S, ·) fp32 batch plus its (D·B, D) one-hot. ``store_images[d]``
-    is (N_d, S, S, 3), ``store_masks[d]`` (N_d, S, S), ``indices`` (D, B)."""
+    is (N_d, S, S, 3), ``store_masks[d]`` (N_d, S, S), ``indices`` (D, B).
+    ``rows`` (first, count) gathers only those rows of the stacked batch (a
+    data-parallel rank's slice)."""
     d, b = indices.shape
-    imgs = torch.cat([store_images[i][indices[i]] for i in range(d)]).float()
-    masks = torch.cat([store_masks[i][indices[i]] for i in range(d)]).float()
+    first, count = rows or (0, d * b)
+    parts = [(i, lo, hi) for i, (lo, hi) in enumerate(domain_slices(first, count, d, b))
+             if hi > lo]
+    imgs = torch.cat([store_images[i][indices[i, lo:hi]] for i, lo, hi in parts]).float()
+    masks = torch.cat([store_masks[i][indices[i, lo:hi]] for i, lo, hi in parts]).float()
     eye = torch.eye(d, dtype=torch.float32, device=imgs.device)
-    return imgs, masks, eye.repeat_interleave(b, dim=0)
+    return imgs, masks, eye.repeat_interleave(b, dim=0)[first:first + count]
 
 
 def eval_transform(images: torch.Tensor, masks: torch.Tensor
@@ -104,32 +111,38 @@ class EvalSplitStore:
         return int(self.offsets[i]), int(self.sizes[i])
 
 
-def eval_index_batches(offset: int, n: int, batch_size: int
+def eval_index_batches(offset: int, n: int, batch_size: int, pad_to: int | None = None
                        ) -> Iterator[tuple[np.ndarray, int]]:
     """``(indices, valid)`` for one domain of an :class:`EvalSplitStore`:
-    ``indices`` is a (batch_size,) int32 array of store rows; the ragged tail
+    ``indices`` is a (pad_to,) int32 array of store rows; the ragged tail
     is padded with the domain's first row (every reduction of the eval step is
-    masked by ``valid``)."""
+    masked by ``valid``). ``pad_to`` (≥ ``batch_size``, default
+    ``batch_size``) pads every batch while the batches stay ``batch_size``
+    samples: Dice and IoU are global per eval batch, then batch-weighted, so
+    the grouping is part of the metric, and a data-parallel eval pads to a
+    multiple of its ranks instead (``mdvit_tpu/data/loader.py:eval_batches``)."""
+    pad_to = batch_size if pad_to is None else max(pad_to, batch_size)
     for start in range(0, n, batch_size):
         stop = min(start + batch_size, n)
         valid = stop - start
-        idx = np.full((batch_size,), offset, np.int32)
+        idx = np.full((pad_to,), offset, np.int32)
         idx[:valid] = np.arange(offset + start, offset + stop, dtype=np.int32)
         yield idx, valid
 
 
-def eval_batches(domain: DomainArrays, batch_size: int
+def eval_batches(domain: DomainArrays, batch_size: int, pad_to: int | None = None
                  ) -> Iterator[tuple[np.ndarray, np.ndarray, int]]:
-    """Host eval batches (images, masks, valid), the ragged tail padded with
-    zeros to ``batch_size``."""
+    """Host eval batches (images, masks, valid), each padded with zeros to
+    ``pad_to`` rows (as ``eval_index_batches``)."""
     n = len(domain)
+    pad_to = batch_size if pad_to is None else max(pad_to, batch_size)
     for start in range(0, n, batch_size):
         stop = min(start + batch_size, n)
         imgs = domain.images[start:stop].astype(np.float32)
         msks = domain.masks[start:stop].astype(np.float32)
         valid = stop - start
-        if valid < batch_size:
-            pad = batch_size - valid
+        if valid < pad_to:
+            pad = pad_to - valid
             imgs = np.concatenate([imgs, np.zeros((pad,) + imgs.shape[1:], np.float32)])
             msks = np.concatenate([msks, np.zeros((pad,) + msks.shape[1:], np.float32)])
         yield imgs, msks, valid

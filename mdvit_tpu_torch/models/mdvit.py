@@ -15,7 +15,13 @@ Aux modes:
 * ``"none"`` (serving): ``{"seg": (logits, None), "feat": ...}``;
 * ``"grouped"`` (the MKD train step): the batch is D equal domain-contiguous
   groups; each debranch runs on its own domain's group only, so only its BN
-  stats move, and the aux logits are re-stacked to (D·B, H, W, 1);
+  stats move, and the aux logits are re-stacked to (D·B, H, W, 1). Under
+  data parallelism the batch is a rank's rows of the global one
+  (``parallel.mesh.current_shard``): each row goes to its global domain's
+  debranch, every debranch runs on every rank (on no rows, where the rank
+  holds none of its domain), so the BatchNorms' collectives line up, and
+  its dropout counters are the rows' places in their domain's group (JAX
+  vmaps the debranches with split dropout streams);
 * ``"select"`` (eval of mixed-domain batches): every debranch runs on the
   whole batch in eval mode and each sample's one-hot picks its output;
 * ``"features"`` (the eval step): the debranches are skipped and the output
@@ -35,6 +41,7 @@ from mdvit_tpu_torch.models.decoders import (DeepLabV3Decoder, MLPDecoder, MLPDe
                                              UnetDecodingBlockTransformer)
 from mdvit_tpu_torch.ops.layers import Conv2d
 from mdvit_tpu_torch.ops.resize import resize_bilinear
+from mdvit_tpu_torch.parallel.mesh import current_shard, domain_slices, sharded
 
 DECODERS = ("MLPFM", "MLP", "DeepLabV3", "Transformer")
 
@@ -129,13 +136,18 @@ class MDViT(FATEncoderDecoder):
         d = self.num_domains
         aux = None
         if aux_mode == "grouped":
-            b = x.shape[0]
-            if b % d:
-                raise ValueError(f"grouped aux_mode needs batch ({b}) divisible "
+            shard, b = current_shard(), x.shape[0]
+            total = shard.total or b
+            if total % d:
+                raise ValueError(f"grouped aux_mode needs batch ({total}) divisible "
                                  f"by num_domains ({d}), domain-contiguous")
-            groups = [f.chunk(d, dim=0) for f in features]
-            aux = torch.cat([self.debranch_module(i)([g[i] for g in groups], train, gen)
-                             for i in range(d)])
+            per, outs, start = total // d, [], 0
+            for i, (lo, hi) in enumerate(domain_slices(shard.row0, b, d, per)):
+                part = [f[start:start + hi - lo] for f in features]
+                start += hi - lo
+                with sharded(shard._replace(row0=lo, total=per)):
+                    outs.append(self.debranch_module(i)(part, train, gen))
+            aux = torch.cat(outs)
         elif aux_mode == "select":
             outs = torch.stack([self.debranch_module(i)(features, False)
                                 for i in range(d)])  # (D, B, H, W, 1)

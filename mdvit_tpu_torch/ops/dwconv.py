@@ -155,6 +155,8 @@ def _cpe_forward(x, w, b):
     _check_int32("cpe_conv", x)
     bsz, h, wd, c = x.shape
     out = torch.empty((bsz, h, wd, c), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:  # no rows (a data-parallel rank's empty group): no launch
+        return out
     lib = kernels.library("dwconv")
     with torch.cuda.device(x.device):
         status = lib.mdvit_cpe_conv_fwd(
@@ -172,6 +174,8 @@ def _cpe_backward(x, w, g):
     _check_int32("cpe_conv_bwd", x, g)
     bsz, h, wd, c = x.shape
     dx = torch.empty((bsz, h, wd, c), dtype=x.dtype, device=x.device)
+    if dx.numel() == 0:
+        return dx, torch.zeros((3 * 3 + 1, c), dtype=torch.float32, device=x.device)
     partial, total = _weight_scratch(x, 3, kernels.dwconv_weight_tiles(bsz, h, wd))
     lib = kernels.library("dwconv")
     with torch.cuda.device(x.device):
@@ -190,6 +194,8 @@ def _crpe_forward(q, v, w, b):
     _check_int32("crpe_conv", q, v)
     bsz, h, wd, c = q.shape
     out = torch.empty((bsz, h, wd, c), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
     lib = kernels.library("dwconv")
     with torch.cuda.device(q.device):
         status = lib.mdvit_crpe_conv_fwd(
@@ -209,6 +215,8 @@ def _crpe_backward(q, v, w, b, g):
     bsz, h, wd, c = q.shape
     dq, dv = (torch.empty((bsz, h, wd, c), dtype=q.dtype, device=q.device)
               for _ in range(2))
+    if dq.numel() == 0:
+        return dq, dv, torch.zeros((7 * 7 + 1, c), dtype=torch.float32, device=q.device)
     partial, total = _weight_scratch(q, 7, kernels.dwconv_weight_tiles(bsz, h, wd))
     lib = kernels.library("dwconv")
     with torch.cuda.device(q.device):

@@ -95,6 +95,8 @@ def _forward(q, k, v, ch, scale):
     _check(q, k, v, ch)
     b, n, c = q.shape
     out = torch.empty((b, n, c), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:  # no rows (a data-parallel rank's empty group): no launch
+        return out
     lib = kernels.library("factorized_attention")
     ws = _workspace(lib, q, ch, grad=False)
     with torch.cuda.device(q.device):
@@ -119,6 +121,8 @@ def _backward(q, k, v, g, ch, scale):
     b, n, c = q.shape
     dq, dk, dv = (torch.empty((b, n, c), dtype=q.dtype, device=q.device)
                   for _ in range(3))
+    if dq.numel() == 0:
+        return dq, dk, dv
     lib = kernels.library("factorized_attention")
     ws = _workspace(lib, q, ch, grad=True)
     with torch.cuda.device(q.device):

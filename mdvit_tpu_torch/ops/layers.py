@@ -8,7 +8,9 @@ call draws one uint32 seed from an explicit CPU ``torch.Generator`` (``gen``)
 and hashes its mask's element counters on the input's device (SplitMix32, the
 JAX package's ``fast_uniform``): no mask crosses from host to device, and one
 seed gives the same masks on the CPU and on a card. JAX's threefry stream
-itself cannot be matched.
+itself cannot be matched. Under data parallelism a rank hashes the global
+counters of its rows (``parallel.mesh.current_shard().row0`` rows in), so
+its masks are its rows of the unsharded batch's.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mdvit_tpu_torch.ops.norm import NormSpec, make_bn
+from mdvit_tpu_torch.parallel.mesh import current_shard
 
 # Minimax fit of (b, a) in 0.5·x·(1+tanh(b(x+ax³))) to the exact erf GELU
 # x·Φ(x) over [0, 10] (the JAX package's bf16 GELU); max |err| 2.7e-4.
@@ -61,15 +64,18 @@ def hash_u32(x: torch.Tensor) -> torch.Tensor:
 
 
 def fast_uniform(seed: int | torch.Tensor, shape, device: torch.device | str = "cpu",
-                 offset: int = 0) -> torch.Tensor:
+                 offset: int = 0, first: int = 0) -> torch.Tensor:
     """U[0, 1) fp32 of ``shape`` from hashed row-major element counters,
     bit-equal to ``mdvit_tpu/data/augment.py:fast_uniform``. ``seed`` is a
     host int (dropout) or a 0-d int64 tensor on ``device`` (the augmentation
-    noise, drawn on the device); ``offset`` picks an independent stream."""
+    noise, drawn on the device); ``offset`` picks an independent stream;
+    ``first`` is the first element's counter (a rank's slice of a larger
+    array)."""
     n = 1
     for s in shape:
         n *= int(s)
-    idx = torch.arange(n, dtype=torch.int64, device=device).reshape(tuple(shape))
+    idx = torch.arange(first, first + n, dtype=torch.int64,
+                       device=device).reshape(tuple(shape))
     mix = (offset * 0x85EBCA6B) & _U32
     if isinstance(seed, torch.Tensor):
         base = _mul_u32(seed.to(torch.int64) & _U32, 0x9E3779B9)
@@ -80,12 +86,12 @@ def fast_uniform(seed: int | torch.Tensor, shape, device: torch.device | str = "
 
 
 def fast_normal(seed: int | torch.Tensor, shape, device: torch.device | str = "cpu",
-                offset: int = 0) -> torch.Tensor:
+                offset: int = 0, first: int = 0) -> torch.Tensor:
     """N(0, 1) by Box–Muller on two hashed-uniform streams
     (``mdvit_tpu/data/augment.py:fast_normal``); ``log`` and ``cos`` round as
     the device's libm does, so it matches the JAX package to fp32 rounding."""
-    u1 = fast_uniform(seed, shape, device, offset=offset * 2 + 1)
-    u2 = fast_uniform(seed, shape, device, offset=offset * 2 + 2)
+    u1 = fast_uniform(seed, shape, device, offset=offset * 2 + 1, first=first)
+    u2 = fast_uniform(seed, shape, device, offset=offset * 2 + 2, first=first)
     r = torch.sqrt(-2.0 * torch.log(torch.clamp(u1, min=1e-12)))
     return r * torch.cos((2.0 * math.pi) * u2)
 
@@ -98,8 +104,11 @@ def draw_seed(gen: torch.Generator | None) -> int:
 
 
 def _keep_mask(keep: float, shape, gen, like: torch.Tensor) -> torch.Tensor:
-    """Bernoulli(keep) bools of ``shape``, drawn on ``like``'s device."""
-    return fast_uniform(draw_seed(gen), shape, device=like.device) < keep
+    """Bernoulli(keep) bools of ``shape`` (rows first), drawn on ``like``'s
+    device at the counters of the current shard's rows."""
+    per_row = math.prod(shape[1:])
+    first = current_shard().row0 * per_row
+    return fast_uniform(draw_seed(gen), shape, device=like.device, first=first) < keep
 
 
 def drop_path(x: torch.Tensor, rate: float, train: bool, gen) -> torch.Tensor:

@@ -18,14 +18,23 @@ Inside ``running_stats_frozen()`` a train-mode BatchNorm normalises as
 always but writes no running stats: the recompute of an activation
 checkpoint (``tpu.remat``) runs the forward again, and the stats must take
 the batch's moments once, from the first forward, as JAX's do.
+
+Under data parallelism (``parallel.mesh.sharded``) a train-mode BatchNorm
+sums its moments' terms (Σx, Σx², counts) over the ranks before it divides,
+differentiably, as JAX's ``psum`` does: the moments, the gradients through
+them and the running stats are those of the global batch, equal on every
+rank. A rank that holds no row of a group adds zeros.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Iterator, NamedTuple
 
 import torch
 from torch import nn
+
+from mdvit_tpu_torch.parallel.mesh import all_reduce_sum, current_shard
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
@@ -68,19 +77,31 @@ def _bshape(x: torch.Tensor) -> tuple:
     return (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
 
 
+def _sums_over_batch(*sums: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The batch sums (each (..., C) or (...,)) summed over the ranks of the
+    current shard's group in one collective; as they are without a group."""
+    group = current_shard().group
+    if group is None:
+        return sums
+    flat = all_reduce_sum(torch.cat([t.reshape(-1) for t in sums]), group)
+    return tuple(part.reshape(t.shape) for part, t in
+                 zip(flat.split([t.numel() for t in sums]), sums))
+
+
 def _group_moments(xf: torch.Tensor, oh: torch.Tensor):
     """Masked per-domain moments (norm.py:117-128): var = E[x²] − mean²,
     clamped at 0, from s1 = Σx and s2 = Σx² over each sample's pixels.
     Returns each sample's (mean, var) broadcast to x, and per domain the
     mean, the biased variance and the count of values."""
     spatial = tuple(range(1, xf.dim() - 1))
-    n_spatial = xf[0, ..., 0].numel()
+    n_spatial = math.prod(xf.shape[1:-1])
     s1 = xf.sum(dim=spatial)                        # (B, C)
     s2 = (xf * xf).sum(dim=spatial)
-    cnt = oh.sum(dim=0) * n_spatial                 # (D,)
+    ds1, ds2, cnt = _sums_over_batch(oh.t() @ s1, oh.t() @ s2,  # (D, C), (D, C)
+                                     oh.sum(dim=0) * n_spatial)  # (D,)
     cnt_safe = cnt.clamp(min=1.0)[:, None]
-    dmean = (oh.t() @ s1) / cnt_safe                # (D, C)
-    dvar = ((oh.t() @ s2) / cnt_safe - dmean * dmean).clamp(min=0.0)
+    dmean = ds1 / cnt_safe                          # (D, C)
+    dvar = (ds2 / cnt_safe - dmean * dmean).clamp(min=0.0)
     bshape = _bshape(xf)
     return (oh @ dmean).reshape(bshape), (oh @ dvar).reshape(bshape), dmean, dvar, cnt
 
@@ -96,10 +117,11 @@ def _joint_moments(xf: torch.Tensor):
     """Moments over batch and space (norm.py:156-167), and the unbiased
     variance for the running stats."""
     axes = tuple(range(xf.dim() - 1))
-    mean = xf.mean(dim=axes)
-    var = ((xf * xf).mean(dim=axes) - mean * mean).clamp(min=0.0)
-    n = xf[..., 0].numel()
-    return mean, var, var * n / max(n - 1, 1)
+    n = torch.full((), float(math.prod(xf.shape[:-1])), device=xf.device)
+    s1, s2, n = _sums_over_batch(xf.sum(dim=axes), (xf * xf).sum(dim=axes), n)
+    mean = s1 / n.clamp(min=1.0)
+    var = (s2 / n.clamp(min=1.0) - mean * mean).clamp(min=0.0)
+    return mean, var, var * n / (n - 1.0).clamp(min=1.0)
 
 
 class DomainBatchNorm(nn.Module):

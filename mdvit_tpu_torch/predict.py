@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from mdvit_tpu_torch.data.preprocess import normalize, resize_bilinear_np
-from mdvit_tpu_torch.device import no_tf32
+from mdvit_tpu_torch.device import deterministic, no_tf32
 from mdvit_tpu_torch.models.base import split_seg
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".npy")
@@ -93,12 +93,13 @@ class Serving(torch.nn.Module):
 
 def make_forward(model: torch.nn.Module) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
     """``Serving(model)`` as a function, as ``scripts/predict.py:make_forward``.
-    Runs without autograd and with TF32 off (``no_tf32``), whatever the
-    caller's flags say."""
+    Runs without autograd, with TF32 off (``no_tf32``) and deterministic
+    (``deterministic``), whatever the caller's flags say."""
     serve = Serving(model)
 
     @torch.no_grad()
     @no_tf32()
+    @deterministic()
     def forward(x: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
         return serve(x, onehot)
 

@@ -33,55 +33,82 @@ step's numbers, running stats and generator state are the plain step's.
 
 The eval step (``make_eval_step``) returns masked overlap counts and a
 masked fp32 loss of a padded batch. Neither step reads a device value on
-the host.
+the host. Both run under ``device.deterministic``: two calls from one state
+give the same bits.
+
+Data parallelism (``group``, a ``torch.distributed`` group; JAX's
+``data_sharding``): each rank takes its contiguous rows of the global batch
+(``parallel.mesh``), draws the global batch's augmentation and dropout at
+its rows' counters, and every sum across samples is summed over the ranks:
+the BatchNorms' moments, the losses' per-domain sums (so a domain split
+across ranks gets the unsharded BCE, dice and KT), the eval counts. Every
+rank then holds the global losses, and its backward pulls give the
+gradient of the global loss through its own rows, scaled by the group's
+size (the sums' backward adds the ranks' identical upstream gradients); the
+step sums the gradients over the ranks in one flat buffer, divides by the
+size and steps the optimizer, so every rank holds the same parameters.
+There is no DDP wrapper: DDP's hooks see ``backward()``, not the
+``autograd.grad`` pulls of the MKD step. ``group=None`` is the
+single-process step, with no collective.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Sequence
+import math
+from typing import Any, Callable, Sequence
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from mdvit_tpu_torch.data.augment import augment_batch
 from mdvit_tpu_torch.data.loader import eval_transform, gather_batch
-from mdvit_tpu_torch.device import no_tf32
+from mdvit_tpu_torch.device import deterministic, no_tf32
 from mdvit_tpu_torch.models.base import split_seg
 from mdvit_tpu_torch.ops.norm import running_stats_frozen
-from mdvit_tpu_torch.train.losses import _SMOOTH, bce_with_logits, dice_loss
+from mdvit_tpu_torch.parallel.mesh import Shard, all_reduce_sum, current_shard, sharded
+from mdvit_tpu_torch.train.losses import bce_terms, dice_loss_from_sums
 
 
-def _dice_iou(probs: torch.Tensor, y: torch.Tensor):
-    """Thresholded (0.5) dice and jaccard of each domain's group, (D, ...)
-    → (D,), with the empty-set guards of ``steps.py:_dice_iou``."""
-    dims = tuple(range(1, probs.dim()))
-    pred = (probs > 0.5).float()
-    inter = (pred * y).sum(dim=dims)
-    sp, st = pred.sum(dim=dims), y.sum(dim=dims)
+def _dice_iou(inter, sum_pred, sum_true):
+    """Thresholded dice and jaccard from overlap counts, with the empty-set
+    guards of ``steps.py:_dice_iou``."""
     zero = torch.zeros_like(inter)
-    dice = torch.where(sp + st > 0, 2 * inter / (sp + st).clamp(min=1), zero)
-    union = sp + st - inter
-    iou = torch.where(union > 0, inter / union.clamp(min=1), zero)
-    return dice, iou
+    total = sum_pred + sum_true
+    dice = torch.where(total > 0, 2 * inter / total.clamp(min=1), zero)
+    union = total - inter
+    return dice, torch.where(union > 0, inter / union.clamp(min=1), zero)
 
 
 def per_domain_losses(logits: torch.Tensor, aux_logits: torch.Tensor,
                       labels: torch.Tensor, num_domains: int):
     """Per-domain (seg, aux, kt) losses and (dice, iou), each (D,), from the
-    domain-contiguous (D·B, H, W, 1) outputs (``steps.py:_per_domain_losses``).
-    KT is ``dice_loss(aux_probs, probs)`` with no detach, as in JAX."""
-    def group(a):
-        return a.float().reshape((num_domains, -1) + tuple(a.shape[1:]))
-
-    lg, ag, yg = group(logits), group(aux_logits), group(labels)
-    probs, aux_probs = torch.sigmoid(lg), torch.sigmoid(ag)
-    seg, aux, kt = [], [], []
-    for d in range(num_domains):
-        seg.append(bce_with_logits(lg[d], yg[d]) + dice_loss(probs[d], yg[d]))
-        aux.append(bce_with_logits(ag[d], yg[d]) + dice_loss(aux_probs[d], yg[d]))
-        kt.append(dice_loss(aux_probs[d], probs[d]))
-    dice, iou = _dice_iou(probs, yg)
-    return torch.stack(seg), torch.stack(aux), torch.stack(kt), dice, iou
+    (B, H, W, 1) outputs of a domain-contiguous batch of D equal groups, or
+    of a rank's rows of one (``parallel.mesh.current_shard``)
+    (``steps.py:_per_domain_losses``). Each is formed from its domain's sums
+    (Σbce, Σpy, Σp², Σy², ..., the value count), summed over the shard's
+    ranks first: the dice of a group is not a sum over its samples. KT is
+    ``dice_loss(aux_probs, probs)`` with no detach, as in JAX."""
+    shard = current_shard()
+    b = logits.shape[0]
+    per = (shard.total or b) // num_domains
+    domain = (shard.row0 + torch.arange(b, device=logits.device)) // per
+    onehot = (domain[:, None] == torch.arange(num_domains, device=logits.device)).float()
+    lg, ag, y = logits.float(), aux_logits.float(), labels.float()
+    p, a = torch.sigmoid(lg), torch.sigmoid(ag)
+    pred = (p > 0.5).float()
+    terms = (bce_terms(lg, y), p * y, p * p, y * y, bce_terms(ag, y), a * y, a * a, a * p,
+             pred * y, pred)
+    rows = torch.stack([t.sum(dim=(1, 2, 3)) for t in terms], dim=1)    # (B, K)
+    rows = torch.cat([rows, torch.full((b, 1), float(math.prod(y.shape[1:])),
+                                       device=rows.device)], dim=1)
+    sums = all_reduce_sum(onehot.t() @ rows, shard.group)                # (D, K)
+    bce, py, pp, yy, abce, ay, aa, ap, inter, sp, n = sums.unbind(1)
+    n = n.clamp(min=1.0)
+    seg = bce / n + dice_loss_from_sums(py, pp, yy)
+    aux = abce / n + dice_loss_from_sums(ay, aa, yy)
+    kt = dice_loss_from_sums(ap, aa, pp)
+    return (seg, aux, kt, *_dice_iou(inter, sp, yy))
 
 
 class _Recompute:
@@ -103,11 +130,25 @@ class _Recompute:
         self.gen.set_state(self.resume)
 
 
+def _rank_and_size(group: Any) -> tuple[int, int]:
+    if group is None:
+        return 0, 1
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
+def _shard_of(group: Any, total: int) -> Shard:
+    """This rank's shard of a ``total``-row batch (the whole, without a group)."""
+    rank, size = _rank_and_size(group)
+    if total % size:
+        raise ValueError(f"a batch of {total} rows does not split over {size} ranks")
+    return Shard(group, rank * (total // size), total)
+
+
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     scheduler, num_domains: int, alpha: float = 0.5,
                     det_sup: bool = True, mkd: bool = True, seed: int = 0,
-                    device_augment: bool = True, remat: bool = False
-                    ) -> Callable[..., dict[str, torch.Tensor]]:
+                    device_augment: bool = True, remat: bool = False,
+                    group: Any = None) -> Callable[..., dict[str, torch.Tensor]]:
     """``step(images, masks, indices) → metrics``: one train step of ``model``
     on the batch that ``indices`` (D, B) selects from the per-domain uint8
     stores ``images``/``masks``, augmented on the device when
@@ -116,8 +157,10 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     (``step.generator``), the augmentation from one on the model's device
     (``step.aug_generator``, same seed). Metrics are device tensors with the
     JAX step's names; reading them is the caller's choice. The step runs
-    with TF32 off (``no_tf32``), whatever the caller's flags say. ``remat``
-    recomputes the model's activations in the backward (module docstring)."""
+    with TF32 off (``no_tf32``) and deterministic (``deterministic``),
+    whatever the caller's flags say. ``remat`` recomputes the model's
+    activations in the backward; ``group`` shards the batch over its ranks
+    (module docstring), each rank passing the same global ``indices``."""
     named = list(model.named_parameters())
     params = [p for _, p in named]
     masked = [i for i, (n, _) in enumerate(named) if "domain_layer" in n]
@@ -128,10 +171,13 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         return torch.autograd.grad(loss, wrt, retain_graph=retain,
                                    allow_unused=True, materialize_grads=True)
 
-    @no_tf32()
-    def step(images: Sequence[torch.Tensor], masks: Sequence[torch.Tensor],
-             indices: torch.Tensor) -> dict[str, torch.Tensor]:
-        x_raw, m_raw, onehot = gather_batch(images, masks, indices)
+    size = _rank_and_size(group)[1]
+
+    def pulls(images, masks, indices, shard: Shard):
+        """The forward on this rank's rows, the losses and the backward pulls:
+        (metrics, gradients)."""
+        rows = (shard.row0, shard.total // size)
+        x_raw, m_raw, onehot = gather_batch(images, masks, indices, rows)
         if device_augment:
             x, y = augment_batch(aug_gen, x_raw, m_raw)
         else:
@@ -167,27 +213,33 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
             seg_d, _, _, dice_d, iou_d = per_domain_losses(logits, logits, y, num_domains)
             metrics = {"loss": seg_d.sum(), "loss_per_domain": seg_d}
             grads = grads_of(seg_d.sum(), params)
+        metrics.update(dice_per_domain=dice_d, iou_per_domain=iou_d)
+        return metrics, list(grads)
+
+    @no_tf32()
+    @deterministic()
+    def step(images: Sequence[torch.Tensor], masks: Sequence[torch.Tensor],
+             indices: torch.Tensor) -> dict[str, torch.Tensor]:
+        shard = _shard_of(group, indices.numel())
+        with sharded(shard):
+            metrics, grads = pulls(images, masks, indices, shard)
+        if group is not None:
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(flat, group=group)
+            grads = [part.view_as(g) for part, g in
+                     zip(flat.div_(size).split([g.numel() for g in grads]), grads)]
         for p, g in zip(params, grads):
             p.grad = g
         optimizer.step()
         scheduler.step()
-        metrics.update(dice_per_domain=dice_d, iou_per_domain=iou_d)
         return {k: v.detach() for k, v in metrics.items()}
 
     step.generator, step.aug_generator = gen, aug_gen
     return step
 
 
-def _masked_counts(logits: torch.Tensor, y: torch.Tensor,
-                   sample_mask: torch.Tensor) -> dict[str, torch.Tensor]:
-    probs = torch.sigmoid(logits.float()) * sample_mask
-    pred = (probs > 0.5).float()
-    yv = y * sample_mask
-    return {"inter": (pred * yv).sum(), "sum_pred": pred.sum(), "sum_true": yv.sum()}
-
-
-def make_eval_step(model: torch.nn.Module, mkd: bool = True, from_store: bool = False
-                   ) -> Callable[..., dict]:
+def make_eval_step(model: torch.nn.Module, mkd: bool = True, from_store: bool = False,
+                   group: Any = None) -> Callable[..., dict]:
     """``step(images, masks, onehot, valid, domain=None, indices=None)`` →
     masked overlap counts and the masked loss of one padded eval batch
     (``mdvit_tpu/train/steps.py:make_eval_step``), so the host can form the
@@ -199,16 +251,28 @@ def make_eval_step(model: torch.nn.Module, mkd: bool = True, from_store: bool = 
     (``aux_mode="features"``) and the step applies that domain's debranch;
     without it every debranch runs and the one-hot selects
     (``aux_mode="select"``). The loss (BCE mean + squared-denominator dice)
-    is computed in fp32 whatever the model's dtype. Returns device tensors:
+    is computed in fp32 whatever the model's dtype. ``group``: each rank
+    takes its rows of the padded batch (a multiple of the ranks) and the
+    sums are summed over the ranks. Returns device tensors:
     ``{"loss", "primary": {"inter", "sum_pred", "sum_true"}, "aux": …}``."""
+
+    size = _rank_and_size(group)[1]
 
     @torch.no_grad()
     @no_tf32()
+    @deterministic()
     def step(images: torch.Tensor, masks: torch.Tensor, onehot: torch.Tensor,
              valid: int, domain: int | None = None,
              indices: torch.Tensor | None = None) -> dict:
+        row0 = _shard_of(group, onehot.shape[0]).row0
+        b = onehot.shape[0] // size
+        rows = slice(row0, row0 + b)
         if from_store:
-            images, masks = images[indices].float(), masks[indices].float()
+            idx = indices[rows]
+            images, masks = images[idx].float(), masks[idx].float()
+        else:
+            images, masks = images[rows], masks[rows]
+        onehot = onehot[rows]
         x, y = eval_transform(images, masks)
         aux_mode = "none" if not mkd else ("features" if domain is not None else "select")
         out = model(x, onehot, train=False, aux_mode=aux_mode)
@@ -216,23 +280,38 @@ def make_eval_step(model: torch.nn.Module, mkd: bool = True, from_store: bool = 
         if mkd and aux_logits is None:
             aux_logits = model.debranch_module(domain)(out["aux_features"], False)
 
-        b = x.shape[0]
-        sample_mask = (torch.arange(b, device=x.device) < valid).float().view(b, 1, 1, 1)
+        live = (row0 + torch.arange(b, device=x.device)) < valid
+        sample_mask = live.float().view(b, 1, 1, 1)
         lg32 = logits.float()
-        probs = torch.sigmoid(lg32)
-        n_valid = valid * y.shape[1] * y.shape[2] * y.shape[3]
-        per_bce = (lg32.clamp(min=0.0) - lg32 * y
-                   + torch.log1p(torch.exp(-lg32.abs()))) * sample_mask
-        bce = per_bce.sum() / max(n_valid, 1)
-        pm, ym = probs * sample_mask, y * sample_mask
-        dice_l = 1.0 - (2 * (pm * ym).sum() + _SMOOTH) / (
-            (pm * pm).sum() + (ym * ym).sum() + _SMOOTH)
-        res = {"loss": bce + dice_l, "primary": _masked_counts(logits, y, sample_mask)}
+        pm, ym = torch.sigmoid(lg32) * sample_mask, y * sample_mask
+        sums = [(bce_terms(lg32, y) * sample_mask).sum(), (pm * ym).sum(), (pm * pm).sum(),
+                (ym * ym).sum(), *_masked_counts(logits, y, sample_mask)]
         if mkd:
-            res["aux"] = _masked_counts(aux_logits, y, sample_mask)
+            sums += _masked_counts(aux_logits, y, sample_mask)
+        sums = torch.stack(sums)
+        if group is not None:
+            dist.all_reduce(sums, group=group)
+        n_valid = valid * y.shape[1] * y.shape[2] * y.shape[3]
+        bce = sums[0] / max(n_valid, 1)
+        res = {"loss": bce + dice_loss_from_sums(*sums[1:4]),
+               "primary": dict(zip(_COUNTS, sums[4:7]))}
+        if mkd:
+            res["aux"] = dict(zip(_COUNTS, sums[7:10]))
         return res
 
     return step
+
+
+_COUNTS = ("inter", "sum_pred", "sum_true")
+
+
+def _masked_counts(logits: torch.Tensor, y: torch.Tensor,
+                   sample_mask: torch.Tensor) -> list[torch.Tensor]:
+    """Σ pred·y, Σ pred, Σ y over the rows ``sample_mask`` keeps."""
+    probs = torch.sigmoid(logits.float()) * sample_mask
+    pred = (probs > 0.5).float()
+    yv = y * sample_mask
+    return [(pred * yv).sum(), pred.sum(), yv.sum()]
 
 
 def counts_to_metrics(c: dict) -> tuple[float, float]:

@@ -9,7 +9,16 @@ reference's own choice), per-domain scalars, ``test_results.csv`` with a
 Total row, ``debug`` one-batch mode. ``last.pt`` holds the full train state
 for resume, ``best_meta.json`` the best IoU and epoch.
 
-The port trains the models of the paper's comparisons on one device: MDViT
+Data parallelism (``parallel.mesh``, JAX's mesh rule): the data-parallel
+group is the first n ranks of ``torch.distributed``'s world, n the largest
+divisor of D·B at most the world and ``tpu.mesh.data``; each rank trains and
+evaluates on its rows of every batch (``train.steps``), and every rank holds
+the same model. Rank 0 alone writes ``exp_config.yml``, the scalars,
+``best.pt``, ``last.pt``, ``best_meta.json``, ``test_results.csv`` and the
+profile, and prints; every rank reads ``last.pt`` on resume. At n = 1 there
+is no group and no collective.
+
+The port trains the models of the paper's comparisons: MDViT
 (any debranch, with or without the Sup gate), MDViT_DSN, BASE (± Sup),
 BASE_DSN, BASE_DASE and BASE_USE; a model whose name starts with MDViT
 trains with the MKD objective, the others with the single one. The other
@@ -34,6 +43,7 @@ from mdvit_tpu_torch.data.loader import (DeviceDomainStore, EvalSplitStore,
                                          eval_index_batches)
 from mdvit_tpu_torch.device import resolve_device
 from mdvit_tpu_torch.models.registry import build_model
+from mdvit_tpu_torch.parallel.mesh import Mesh, local_device, make_mesh
 from mdvit_tpu_torch.train import checkpoints as ckpt
 from mdvit_tpu_torch.train.optim import build_optimizer, steplr
 from mdvit_tpu_torch.train.steps import counts_to_metrics, make_eval_step, make_train_step
@@ -123,20 +133,42 @@ def build_model_from_config(config, device: torch.device) -> torch.nn.Module:
                        device=device, seed=int(config.get("seed", 42)), **kw)
 
 
+def data_parallel_mesh(config) -> Mesh:
+    """The data-parallel group of this process for ``config``: the world of
+    ``torch.distributed`` (one process when it is not initialised), capped by
+    ``tpu.mesh.data`` and shrunk to a divisor of D·B. Every rank of the world
+    calls it."""
+    cap = int((config.tpu.get("mesh") or {}).get("data", -1) or -1)
+    return make_mesh(cap, len(config.data.name) * int(config.train.batch_size))
+
+
 class Trainer:
-    def __init__(self, config, exp_dir: str):
+    def __init__(self, config, exp_dir: str, mesh: Mesh | None = None):
+        """``mesh``: this process's data-parallel group
+        (``data_parallel_mesh(config)`` when None); a rank outside it may not
+        build a Trainer."""
         check_supported(config)
         self.config = config
         self.exp_dir = exp_dir
+        self.mesh = data_parallel_mesh(config) if mesh is None else mesh
+        if not self.mesh.member:
+            raise ValueError(f"rank {self.mesh.rank} is outside the data-parallel "
+                             f"group of {self.mesh.size}")
+        self.is_main = self.mesh.rank == 0
+        self.say = print if self.is_main else (lambda *args, **kw: None)
         os.makedirs(exp_dir, exist_ok=True)
-        save_config(config, os.path.join(exp_dir, "exp_config.yml"))
-        self.logger = ScalarLogger(exp_dir)
-        self.device = resolve_device(config.get("device"))
+        if self.is_main:
+            save_config(config, os.path.join(exp_dir, "exp_config.yml"))
+        self.logger = ScalarLogger(exp_dir if self.is_main else None)
+        self.device = resolve_device(local_device(config.get("device")))
         self.model = build_model_from_config(config, self.device)
         self.mkd = _is_mkd_model(config.model)
 
         self.names = list(config.data.name)
         self.num_domains = len(self.names)
+        if self.mesh.size > 1:
+            self.say(f"data-parallel group of {self.mesh.size} ranks (global batch "
+                     f"{self.num_domains * int(config.train.batch_size)})")
         syn = config.data.get("synthetic_sizes")
         self.data = build_domain_data(
             self.names, config.data.data_folder, int(config.data.img_size),
@@ -144,7 +176,7 @@ class Trainer:
             synthetic=bool(config.data.get("synthetic", False)),
             synthetic_sizes={k: tuple(v) for k, v in syn.items()} if syn else None)
         for n in self.names:
-            print(f"{n} has {len(self.data[n]['train'])} training samples")
+            self.say(f"{n} has {len(self.data[n]['train'])} training samples")
 
         self.batch_size = int(config.train.batch_size)
         self.store = DeviceDomainStore([self.data[n]["train"] for n in self.names],
@@ -154,7 +186,7 @@ class Trainer:
         self.steps_per_epoch = (int(config.train.num_iters) if config.train.num_iters
                                 else self.sampler.steps_per_epoch)
         n_params = sum(p.numel() for p in self.model.parameters())
-        print(f"{n_params / 1e6}M total trainable parameters")
+        self.say(f"{n_params / 1e6}M total trainable parameters")
 
         self.optimizer, self.scheduler = build_optimizer(self.model, self.steps_per_epoch,
                                                          config)
@@ -170,11 +202,11 @@ class Trainer:
             det_sup=bool(config.train.get("det_sup", True)), mkd=self.mkd,
             seed=int(config.get("seed", 42)),
             device_augment=device_augment and bool(config.data.train_aug),
-            remat=bool(config.tpu.get("remat", False)))
+            remat=bool(config.tpu.get("remat", False)), group=self.mesh.group)
         self.device_eval = bool(config.tpu.get("device_eval", True))
         self._eval_stores: dict[str, EvalSplitStore] = {}
         self.eval_step = make_eval_step(self.model, mkd=self.mkd,
-                                        from_store=self.device_eval)
+                                        from_store=self.device_eval, group=self.mesh.group)
         self.step = 0
         self.max_iou = 0.0
         self.best_epoch = 0
@@ -201,7 +233,10 @@ class Trainer:
                 "step": self.step, "epoch": epoch, "max_iou": self.max_iou}
 
     def maybe_resume(self) -> None:
+        """Every rank loads ``last.pt``; they wait for each other before rank
+        0's writer, made in ``fit``, may promote a pending checkpoint."""
         restored = ckpt.try_load_last(self.exp_dir)
+        self.mesh.barrier()
         if restored is None:
             return
         self.model.load_state_dict(restored["model"])
@@ -219,7 +254,7 @@ class Trainer:
         if meta is not None and float(meta.get("max_iou", 0.0)) > self.max_iou:
             self.max_iou = float(meta["max_iou"])
             self.best_epoch = int(meta.get("best_epoch", self.best_epoch))
-        print(f"resumed from epoch {self.start_epoch - 1}")
+        self.say(f"resumed from epoch {self.start_epoch - 1}")
 
     def _best_meta_path(self) -> str:
         return os.path.join(self.exp_dir, "best_meta.json")
@@ -240,7 +275,7 @@ class Trainer:
     # ------------------------------------------------------------------
     def _profiler(self, epoch: int):
         steps = int(self.config.tpu.get("profile_steps", 0) or 0)
-        if steps <= 0 or epoch != self.start_epoch:
+        if steps <= 0 or epoch != self.start_epoch or not self.is_main:
             return None, 0
         acts = [torch.profiler.ProfilerActivity.CPU]
         if self.device.type == "cuda":
@@ -298,8 +333,8 @@ class Trainer:
                 epoch_mean[key] = mean_of(key)
                 self.logger.add_scalar(f"Train/Average/{key}", epoch_mean[key], gstep)
         img_per_s = len(steps) * self.num_domains * self.batch_size / max(dt, 1e-9)
-        print(f"Epoch {epoch}, steps {len(steps)} || sum_loss: {epoch_mean['loss']:.4f}, "
-              f"Avg IOU: {epoch_mean['iou']:.4f} || {dt:.1f}s ({img_per_s:.1f} img/s)")
+        self.say(f"Epoch {epoch}, steps {len(steps)} || sum_loss: {epoch_mean['loss']:.4f}, "
+                 f"Avg IOU: {epoch_mean['iou']:.4f} || {dt:.1f}s ({img_per_s:.1f} img/s)")
         self.history.append({"epoch": epoch, "steps": len(steps), "train_seconds": dt,
                              "img_per_s": img_per_s})
         return epoch_mean
@@ -316,22 +351,27 @@ class Trainer:
     # ------------------------------------------------------------------
     def evaluate(self, split: str = "test", epoch: int | None = None) -> dict:
         """Per-domain batch-weighted loss, dice and IoU (reference protocol);
-        with MKD every batch goes to its domain's debranch too."""
+        with MKD every batch goes to its domain's debranch too. Under data
+        parallelism each batch of ``test.batch_size`` is padded to a multiple
+        of the ranks and split over them: the grouping, and so the metric,
+        stays the single process's (``mdvit_tpu/train/trainer.py:421-431``)."""
         results = {}
         eval_bs = int(self.config.test.batch_size)
+        pad_to = -(-eval_bs // self.mesh.size) * self.mesh.size
         for di, n in enumerate(self.names):
-            onehot = torch.zeros((eval_bs, self.num_domains), device=self.device)
+            onehot = torch.zeros((pad_to, self.num_domains), device=self.device)
             onehot[:, di] = 1.0
             if self.device_eval:
                 store = self._eval_store(split)
                 off, n_dom = store.domain(di)
                 batches = ((store.images, store.masks,
                             torch.from_numpy(idx.astype(np.int64)).to(self.device), valid)
-                           for idx, valid in eval_index_batches(off, n_dom, eval_bs))
+                           for idx, valid in eval_index_batches(off, n_dom, eval_bs, pad_to))
             else:
                 batches = ((torch.from_numpy(imgs).to(self.device),
                             torch.from_numpy(msks).to(self.device), None, valid)
-                           for imgs, msks, valid in eval_batches(self.data[n][split], eval_bs))
+                           for imgs, msks, valid in eval_batches(self.data[n][split], eval_bs,
+                                                                 pad_to))
             pending, valids = [], []
             for imgs, msks, idx, valid in batches:
                 pending.append(self.eval_step(imgs, msks, onehot, valid, domain=di,
@@ -361,8 +401,8 @@ class Trainer:
     # ------------------------------------------------------------------
     def fit(self) -> None:
         epochs = int(self.config.train.num_epochs)
-        writer = self.writer = ckpt.CheckpointWriter(self.exp_dir)
-        if self.start_epoch == 0:
+        writer = self.writer = ckpt.CheckpointWriter(self.exp_dir) if self.is_main else None
+        if self.start_epoch == 0 and writer is not None:
             # initial weights, so test() always has a checkpoint (reference
             # multi_train_MDViT.py:114)
             writer.save_best(self.model)
@@ -376,22 +416,26 @@ class Trainer:
             avg_dice = float(np.mean([v["dice"] for v in val.values()]))
             self.logger.add_scalar("Val/Average/IOU", avg_iou, epoch)
             self.logger.add_scalar("Val/Average/Di_score", avg_dice, epoch)
-            print(f"Epoch {epoch}, Validation || Avg Dice: {avg_dice:.4f}, "
-                  f"Avg IOU: {avg_iou:.4f}")
+            self.say(f"Epoch {epoch}, Validation || Avg Dice: {avg_dice:.4f}, "
+                     f"Avg IOU: {avg_iou:.4f}")
+            # every rank holds the same results, so every rank decides alike
             if avg_iou > self.max_iou:
-                writer.save_best(self.model)
                 self.max_iou = avg_iou
                 self.best_epoch = epoch
-                self._write_best_meta()
-                print(f"New best epoch {epoch}!===============================")
-            if (epoch + 1) % every == 0 or epoch == epochs - 1:
+                if writer is not None:
+                    writer.save_best(self.model)
+                    self._write_best_meta()
+                self.say(f"New best epoch {epoch}!===============================")
+            if writer is not None and ((epoch + 1) % every == 0 or epoch == epochs - 1):
                 writer.save_last(self.full_state(epoch))
             self.logger.flush()
             if self.config.debug:
                 break
-        writer.close()
-        print("Complete training ------------------------------------------\n"
-              f"The best epoch is {self.best_epoch}")
+        if writer is not None:
+            writer.close()
+        self.mesh.barrier()  # best.pt and last.pt complete before any rank reads them
+        self.say("Complete training ------------------------------------------\n"
+                 f"The best epoch is {self.best_epoch}")
 
     # ------------------------------------------------------------------
     def test(self, model_dir: str | None = None) -> list[dict[str, Any]]:
@@ -405,13 +449,14 @@ class Trainer:
                 blob = ckpt.try_load_last(self.exp_dir)
                 if blob is None:
                     raise
-                print("best checkpoint missing; testing the last checkpoint")
+                self.say("best checkpoint missing; testing the last checkpoint")
         elif os.path.isdir(model_dir):
             blob = ckpt.load_best(model_dir)
         else:
             blob = ckpt.load(model_dir)
         self.model.load_state_dict(blob["model"])
         rows = results_table(self.names, self.evaluate("test"))
-        write_results_csv(os.path.join(self.exp_dir, "test_results.csv"), rows)
-        print(format_results(rows))
+        if self.is_main:
+            write_results_csv(os.path.join(self.exp_dir, "test_results.csv"), rows)
+        self.say(format_results(rows))
         return rows

@@ -46,19 +46,24 @@ def test_round_robin_sampler_same_rows_over_three_epochs():
 
 @pytest.mark.parametrize("batch_size,n_batches", [(5, 2), (7, 1), (3, 3)])
 def test_eval_batches_and_index_batches(batch_size, n_batches):
+    """Both eval batchings equal JAX's, unpadded and with ``pad_to`` (a
+    data-parallel eval's multiple of its ranks, and a value below the batch
+    size, which pads nothing)."""
     dom = td.synthetic_domain_arrays("PH2", 16, 0, 7)["test"]
     jdom = jd.DomainArrays(dom.name, dom.domain_id, dom.images, dom.masks)
-    for (gi, gm, gv), (wi, wm, wv) in zip(tl.eval_batches(dom, batch_size),
-                                          jl.eval_batches(jdom, batch_size), strict=True):
-        np.testing.assert_array_equal(gi, wi)
-        np.testing.assert_array_equal(gm, wm)
-        assert gv == wv
-    got = list(tl.eval_index_batches(11, 7, batch_size))
-    want = list(jl.eval_index_batches(11, 7, batch_size))
-    assert len(got) == len(want) == n_batches
-    for (gi, gv), (wi, wv) in zip(got, want):
-        np.testing.assert_array_equal(gi, wi)
-        assert gv == wv and gi.dtype == np.int32
+    for pad_to in (None, batch_size + 1, 4 * batch_size, batch_size - 1):
+        for (gi, gm, gv), (wi, wm, wv) in zip(tl.eval_batches(dom, batch_size, pad_to),
+                                              jl.eval_batches(jdom, batch_size, pad_to),
+                                              strict=True):
+            np.testing.assert_array_equal(gi, wi)
+            np.testing.assert_array_equal(gm, wm)
+            assert gv == wv and len(gi) == max(pad_to or batch_size, batch_size)
+        got = list(tl.eval_index_batches(11, 7, batch_size, pad_to))
+        want = list(jl.eval_index_batches(11, 7, batch_size, pad_to))
+        assert len(got) == len(want) == n_batches
+        for (gi, gv), (wi, wv) in zip(got, want):
+            np.testing.assert_array_equal(gi, wi)
+            assert gv == wv and gi.dtype == np.int32
 
 
 def test_stores_and_gather_batch_match_jax():
@@ -173,9 +178,17 @@ def test_save_config_is_json_and_reloads(tmp_path):
 
 
 @pytest.mark.parametrize("tpu", [{"mesh": {"data": 2}}, {"distributed": True}])
-def test_unported_tpu_settings_raise(tpu):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconfig.check_supported(tconfig.load_config(overrides={"tpu": tpu}))
+def test_unported_tpu_settings_raise(tpu, monkeypatch):
+    """Both settings are ported now: ``mesh.data`` caps the data-parallel
+    group and passes, ``distributed`` raises only outside torchrun's
+    environment."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    cfg = tconfig.load_config(overrides={"tpu": tpu})
+    if "distributed" in tpu:
+        with pytest.raises(RuntimeError, match="torchrun"):
+            tconfig.check_supported(cfg)
+        monkeypatch.setenv("WORLD_SIZE", "2")
+    tconfig.check_supported(cfg)
     tconfig.check_supported(tconfig.load_config(overrides={"tpu": {"mesh": {"data": 1}}}))
 
 

@@ -518,3 +518,75 @@ def test_exported_forward_is_the_live_forward_on_card(dtype, tmp_path):
     assert _counts(FORWARD) == {n: 16 for n in FORWARD}
     assert _counts(BACKWARD) == {n: 0 for n in BACKWARD}
     assert torch.equal(got, make_forward(model)(x, oh))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_step_repeats_its_bits_on_card(dtype):
+    """Two MKD steps of MDViT at full width, one block a stage, 64²
+    (dropout and augmentation on) from one state give the same losses,
+    gradients, parameters and BN stats, bit for bit
+    (``device.deterministic``)."""
+    from mdvit_tpu_torch.models.registry import build_mdvit
+    from mdvit_tpu_torch.train.optim import build_optimizer
+    from mdvit_tpu_torch.train.steps import make_train_step
+
+    _need_card()
+    rs = np.random.RandomState(5)
+    imgs = [torch.from_numpy(rs.randint(0, 256, (3, 64, 64, 3)).astype(np.uint8)).cuda()
+            for _ in range(4)]
+    masks = [torch.from_numpy(rs.randint(0, 2, (3, 64, 64)).astype(np.uint8)).cuda()
+             for _ in range(4)]
+    runs = []
+    for _ in range(2):
+        model = build_mdvit(img_size=64, device="cuda", seed=1, dtype=dtype,
+                            num_layers=(1, 1, 1, 1))
+        opt, sched = build_optimizer(model, steps_per_epoch=2)
+        metrics = make_train_step(model, opt, sched, 4)(
+            imgs, masks, torch.tensor([[0, 2]] * 4, device="cuda"))
+        runs.append((metrics, [p.grad for p in model.parameters()], model.state_dict()))
+    (m1, g1, s1), (m2, g2, s2) = runs
+    assert all(torch.equal(v, m2[k]) for k, v in m1.items())
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+    assert all(torch.equal(v, s2[k]) for k, v in s1.items())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("src,dst,c", [((8, 8), (64, 64), 64), ((64, 64), (256, 256), 1)])
+def test_resize_backward_repeats_its_bits_on_card(src, dst, c):
+    """The separable resize's backward gives the same bits twice (the
+    ``F.interpolate`` backward it replaced accumulates with atomics), and
+    its forward equals ``F.interpolate``'s to 1e-6 of the largest value."""
+    import torch.nn.functional as F
+
+    from mdvit_tpu_torch.ops.resize import resize_bilinear
+
+    _need_card()
+    gen = torch.Generator().manual_seed(c)
+    x = torch.randn(16, *src, c, generator=gen).cuda().requires_grad_()
+    g = torch.randn(16, *dst, c, generator=gen).cuda()
+    with no_tf32():
+        y = resize_bilinear(x, dst)
+        grads = [torch.autograd.grad(resize_bilinear(x, dst), x, g)[0] for _ in range(2)]
+        ref = F.interpolate(x.detach().permute(0, 3, 1, 2), size=dst, mode="bilinear",
+                            align_corners=False).permute(0, 2, 3, 1)
+    assert torch.equal(grads[0], grads[1])
+    assert (y - ref).abs().max().item() <= 1e-6 * ref.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", FORWARD + BACKWARD)
+def test_ops_on_no_rows_launch_nothing_on_card(name):
+    """A batch of 0 rows (a data-parallel rank's empty domain group): each op
+    returns its empty outputs (zero weight gradients) without a launch."""
+    _need_card()
+    args = _op_inputs(name, 64, 8, torch.float32)
+    # the batched arguments lead with _op_inputs' B = 2; w and b do not
+    args = tuple(a[:0] if isinstance(a, torch.Tensor) and a.dim() >= 3 and a.shape[0] == 2
+                 else a for a in args)
+    kernels.reset_launches()
+    out = getattr(torch.ops.mdvit, name)(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == 0
+    for t in (out if isinstance(out, tuple) else (out,)):
+        assert t.shape[0] == 0 or not t.any()
