@@ -116,9 +116,26 @@ Phases, each printing JSON lines; any failure exits non-zero:
             1e-5 relative, gradients and updates within ``GRAD_L2_TOL``,
             replicas bit-equal, 16 / 31 launches a rank) and the step ms of
             each;
-14. the ``kernels`` line (launches from the trainer's ``fit``, and by path
-   under ``launches_by_path``), the card's name and power limit, and last
-   the ``{"ok": true, "device": ...}`` line. Each phase prints its seconds.
+14. zoo      the paper's segmentation comparators (UTNet, SwinUnet,
+            SwinUNETR, TransFuse_S, TransFuse_S_adapt, TransFuse_L) at full
+            width, 256², random weights from ``--seed``, one ``zoo`` line
+            each: the serving forward (``make_forward``, fp32, B=16, mixed
+            one-hots, after the family's BN calibration) with every launch
+            counter read around it (0: none reaches the kernels), its logits
+            against the host CPU's at B=2 (within 1e-4·max(1, max|logit|));
+            one train step (D=4 × B=4, no augmentation) twice from one state
+            in fp32 and bf16 (bit-equal: the control), finite losses, step
+            ms, img/s, device-busy ms and peak. Then a ``zoo_more`` line:
+            TransFuse_L_384's forward at 384×512 (three maps), one CLI epoch
+            of TransFuse_S (bf16) from backbones that
+            ``convert_torch_weights`` made of random torchvision/timm
+            checkpoints (the graft report, ``test()``), and
+            ``extract_features`` of the full-width MDViT on the card against
+            the CPU (features within 1e-4 of their scale, ids equal);
+15. the ``kernels`` line (launches from the trainer's ``fit``, and by path
+   under ``launches_by_path``, ``zoo`` all 0), the card's name and power
+   limit, and last the ``{"ok": true, "device": ...}`` line. Each phase
+   prints its seconds.
 
 ``--dp-cards`` runs only the build and the dp phase, with one NCCL rank on
 each visible card (a host of several cards) in place of the gloo ranks.
@@ -137,6 +154,7 @@ import contextlib
 import copy
 import csv
 import functools
+import io
 import itertools
 import json
 import os
@@ -335,6 +353,22 @@ DP_LR = 1e-2
 DP_REL_TOL = 1e-5
 DP_TIMED = 3
 DP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_dp"
+# the zoo phase: the segmentation comparators at full width, 256², trained
+# and served through the entry points (none reaches the six kernels); the
+# card against the host CPU at ZOO_CPU_B images, relative to max(1, max|logit|);
+# steps timed a dtype (after one warm-up); TransFuse_L_384's batch; the CLI
+# run's (train, test) images a domain; extract_features' datasets (their
+# synthetic train splits, 24 images each) and its tolerance relative to the
+# largest feature
+ZOO = ("UTNet", "SwinUnet", "SwinUNETR", "TransFuse_S", "TransFuse_S_adapt", "TransFuse_L")
+ZOO_CPU_B = 2
+ZOO_LOGIT_TOL = 1e-4
+ZOO_STEPS = 3
+ZOO_L384_B = 2
+ZOO_CLI_SIZES = (8, 4)
+ZOO_FEATURE_SETS = ("isic2018", "PH2")
+ZOO_FEATURE_TOL = 1e-4
+ZOO_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_zoo"
 
 
 def emit(obj) -> None:
@@ -1935,6 +1969,268 @@ def phase_dp(seed: int, world: int = DP_WORLD, backend: str = "gloo") -> dict:
     return r0["launches"]
 
 
+# ----------------------------------------------------------------- zoo
+
+
+def _zoo_model(name: str, dtype, seed: int, device: str = "cuda"):
+    return build_model(name, img_size=IMG, num_domains=TRAIN_D, dtype=dtype, device=device,
+                       seed=seed)
+
+
+def _maps(out: dict) -> list:
+    """Every map a model returns (TransFuse: map_x, map_1, map_2)."""
+    seg = out["seg"]
+    return list(seg) if isinstance(seg, tuple) else [seg]
+
+
+def _add_launches(total: dict) -> None:
+    for k, v in kernels.LAUNCHES.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _zoo_train(name: str, dtype, seed: int, batch_data, launches: dict) -> dict:
+    """Two steps from one state with the counters read around each (the
+    control: bit-equal), then the step timed and profiled, and its peak."""
+    model = _zoo_model(name, dtype, seed)
+    runs = []
+    for _ in range(2):
+        m = copy.deepcopy(model)
+        step = _family_step(m, seed)
+        kernels.reset_launches()
+        runs.append(_step_result(m, step, batch_data))
+        _add_launches(launches)
+    a, b = runs
+    control = {"losses_bit_equal": all(_same_bits(v, b["metrics"][k])
+                                       for k, v in a["metrics"].items()),
+               "grads_bit_equal": all(_same_bits(x, y) for x, y in zip(a["grads"], b["grads"])),
+               "bn_stats_bit_equal": all(_same_bits(x, y)
+                                         for x, y in zip(a["buffers"], b["buffers"]))}
+    losses = _losses(a["metrics"])
+    del runs, a, b
+    call = functools.partial(step, *batch_data)
+    kernels.reset_launches()
+    _reset_peak()
+    t = _time_calls(call, TRAIN_D * TRAIN_B, ZOO_STEPS, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    p = _profile_calls(call, reps=1, cpu=False)
+    _add_launches(launches)
+    del model, m, step, call
+    torch.cuda.empty_cache()
+    return {"losses": losses, "finite": all(np.isfinite(v) for v in losses.values()),
+            "control": control, "step_ms_mean": t["latency_ms_mean"],
+            "step_ms_p50": t["latency_ms_p50"], "img_per_s": t["img_per_s"],
+            "device_busy_ms": p["device_busy_ms"], "device_ops_per_step": p["device_ops_per_call"],
+            "idle_share": 1 - p["device_busy_ms"] / t["latency_ms_mean"],
+            "peak_mib": peak / 2 ** 20, "top": p["top"][:3]}
+
+
+def zoo_row(name: str, seed: int, batch_data, launches: dict) -> dict:
+    """One ``zoo`` record: the serving forward (fp32, B=16, mixed one-hots)
+    with the counters read around it, its logits against the host CPU's at
+    B=2, and one train step in fp32 and bf16 (``_zoo_train``)."""
+    t0 = time.perf_counter()
+    images, onehot = _requests(BATCH, seed)
+    model = _zoo_model(name, torch.float32, seed)
+    # at their init the BN running stats let UTNet's activations reach ~1e6,
+    # where its attention's softmax picks by last bits and the card and the
+    # CPU disagree by the logits' whole scale: the family's calibration,
+    # then the CPU model takes these stats
+    _calibrate_bn(model, normalize(images), onehot, FAMILY_BN_PASSES)
+    forward = make_forward(model)
+    kernels.reset_launches()
+    probs = forward(images, onehot)
+    torch.cuda.synchronize()
+    serve = dict(kernels.LAUNCHES)
+    _add_launches(launches)
+    probs_ok = (tuple(probs.shape) == (BATCH, IMG, IMG) and bool(torch.isfinite(probs).all()))
+    serving = _time_calls(lambda: forward(images, onehot), BATCH, iters=5, warmup=2)
+    x, oh = normalize(images[:ZOO_CPU_B]), onehot[:ZOO_CPU_B]
+    with torch.no_grad(), deterministic():
+        card = [m.float().cpu() for m in _maps(model(x, oh))]
+        host_model = _zoo_model(name, torch.float32, seed, "cpu")
+        host_model.load_state_dict(model.state_dict())
+        host = _maps(host_model(x.cpu(), oh.cpu()))
+    scale = max(1.0, max(h.abs().max().item() for h in host))
+    err = max((c - h).abs().max().item() for c, h in zip(card, host))
+    finite, n_maps = all(bool(torch.isfinite(c).all()) for c in card), len(card)
+    del model, forward, probs, card, host, host_model
+    torch.cuda.empty_cache()
+    train = {d: _zoo_train(name, dt, seed, batch_data, launches)
+             for d, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16))}
+    return {"phase": "zoo", "model": name, "img": IMG, "serving_B": BATCH, "D": TRAIN_D,
+            "B": TRAIN_B, "bn_calibration_passes": FAMILY_BN_PASSES,
+            "serving_launches": serve, "probs_ok": probs_ok,
+            "serving_fp32": {"latency_ms_mean": serving["latency_ms_mean"],
+                             "img_per_s": serving["img_per_s"]},
+            "cpu_B": ZOO_CPU_B, "maps": n_maps,
+            "card_vs_cpu_max_abs_err": err, "logit_scale": scale,
+            "tol": ZOO_LOGIT_TOL * scale, "logits_finite": finite, "train": train,
+            "seconds": time.perf_counter() - t0}
+
+
+def _backbone_checkpoints(folder: Path, seed: int) -> dict:
+    """Random torchvision resnet34 and timm deit_small state dicts (the
+    layouts the converter reads: torchvision's ``layer1.0`` and
+    ``downsample``, timm's ``blocks.i`` with the cls token, a 14×14 + 1
+    position embedding and the head), saved as .pth files."""
+    from mdvit_tpu_torch.models.transfuse import DeiT, ResNetStem3Stages
+    from mdvit_tpu_torch.ops.initializers import init_weights_
+
+    gen = torch.Generator().manual_seed(seed)
+    resnet = ResNetStem3Stages("resnet34")
+    init_weights_(resnet, gen)
+    tv = {}
+    for k, v in resnet.state_dict().items():
+        k = k.replace("down_conv", "downsample.0").replace("down_bn", "downsample.1")
+        head, _, rest = k.partition(".")
+        if head.startswith("layer"):
+            head = head.replace("_", ".")
+        tv[f"{head}.{rest}"] = v
+    deit = DeiT(224, embed_dim=384, depth=12, num_heads=6)
+    init_weights_(deit, gen)
+    timm = {"cls_token": 0.02 * torch.randn(1, 1, 384, generator=gen),
+            "pos_embed": 0.02 * torch.randn(1, 197, 384, generator=gen),
+            "head.weight": 0.02 * torch.randn(1000, 384, generator=gen),
+            "head.bias": torch.zeros(1000)}
+    for k, v in deit.state_dict().items():
+        if k == "pos_embed":
+            continue
+        if k.startswith("block"):
+            i, _, rest = k[len("block"):].partition("_")
+            k = f"blocks.{i}.{rest}"
+        timm[k.replace("patch_embed.", "patch_embed.proj.")] = v
+    paths = {"resnet34": folder / "resnet34.pth", "deit_small": folder / "deit_small.pth"}
+    torch.save(tv, paths["resnet34"])
+    torch.save({"model": timm}, paths["deit_small"])
+    return paths
+
+
+def _zoo_cli(seed: int, launches: dict) -> dict:
+    """``Trainer.fit`` of one epoch of TransFuse_S (bf16, synthetic data)
+    from backbones converted by ``convert_torch_weights``, then ``test()``."""
+    from mdvit_tpu_torch import convert_torch_weights
+
+    ckpts = _backbone_checkpoints(ZOO_DIR, seed)
+    pre = ZOO_DIR / "pretrained"
+    for arch, path in ckpts.items():
+        convert_torch_weights.main(["--arch", arch, "--ckpt", str(path), "--grid", "16",
+                                    "--out_dir", str(pre)])
+    sizes = {n: list(ZOO_CLI_SIZES) for n in ("isic2018", "PH2", "DMF", "SKD")}
+    cfg = load_config(overrides={
+        "seed": seed, "model": "TransFuse_S", "pretrained_folder": str(pre),
+        "data": {"img_size": IMG, "synthetic": True, "synthetic_sizes": sizes},
+        "train": {"num_epochs": 1, "batch_size": TRAIN_B}})
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        tr = Trainer(cfg, str(ZOO_DIR / "exp"))
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        tr.fit()
+        rows = tr.test()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        _add_launches(launches)
+        history = list(tr.history)
+        del tr
+    text = out.getvalue()
+    print(text, file=sys.stderr, end="")
+    report = next((line for line in text.splitlines() if "tensors grafted" in line), None)
+    return {"model": "TransFuse_S", "dtype": str(cfg.tpu.compute_dtype),
+            "sizes": list(ZOO_CLI_SIZES), "graft_report": report,
+            "epochs": [{k: h[k] for k in ("epoch", "steps", "img_per_s", "train_seconds",
+                                          "eval_seconds")} for h in history],
+            "total": rows[-1], "fit_and_test_seconds": seconds}
+
+
+def _zoo_features(seed: int) -> dict:
+    """``extract_features`` of the full-width MDViT (weights from ``seed``)
+    on the card and on the host CPU: the features' max abs difference over
+    their scale, ids and domain ids equal, and the card's launches."""
+    from mdvit_tpu_torch import extract_features
+
+    outs, seconds = {}, {}
+    for dev in ("cuda", "cpu"):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            extract_features.main(["--model", "MDViT", "--synthetic", "--dataset",
+                                   *ZOO_FEATURE_SETS, "--img_size", str(IMG),
+                                   "--batch_size", str(BATCH), "--seed", str(seed),
+                                   "--device", dev, "--out", str(ZOO_DIR / f"features_{dev}")])
+        seconds[dev] = time.perf_counter() - t0
+        if dev == "cuda":
+            card_launches = dict(kernels.LAUNCHES)
+        outs[dev] = {n: dict(np.load(ZOO_DIR / f"features_{dev}" / f"features_{n}.npz"))
+                     for n in ZOO_FEATURE_SETS}
+    rel = max(np.abs(outs["cuda"][n]["features"] - outs["cpu"][n]["features"]).max()
+              / np.abs(outs["cpu"][n]["features"]).max() for n in ZOO_FEATURE_SETS)
+    same = all(np.array_equal(outs["cuda"][n][k], outs["cpu"][n][k])
+               for n in ZOO_FEATURE_SETS for k in ("ids", "domain_id", "diagnosis_id"))
+    return {"datasets": list(ZOO_FEATURE_SETS),
+            "shapes": {n: list(outs["cuda"][n]["features"].shape) for n in ZOO_FEATURE_SETS},
+            "max_rel_err": float(rel), "tol_rel": ZOO_FEATURE_TOL, "ids_equal": same,
+            "card_launches": card_launches, "seconds": seconds}
+
+
+def phase_zoo(seed: int) -> dict:
+    """The paper's segmentation comparators on the card: ``zoo_row`` for each
+    of ``ZOO``; TransFuse_L_384's forward at 384×512; one CLI epoch of
+    TransFuse_S from converted backbones; ``extract_features`` card against
+    CPU. Every launch counter is read around the comparators' calls and must
+    read 0. Returns those launches."""
+    shutil.rmtree(ZOO_DIR, ignore_errors=True)
+    ZOO_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    images, masks = _stores(seed)
+    batch_data = (images, masks, torch.arange(TRAIN_B).repeat(TRAIN_D, 1).cuda())
+    launches: dict = {}
+    failures = []
+    for name in ZOO:
+        rec = zoo_row(name, seed, batch_data, launches)
+        emit(rec)
+        ok = (rec["probs_ok"] and rec["logits_finite"] and not any(rec["serving_launches"].values())
+              and rec["card_vs_cpu_max_abs_err"] <= rec["tol"]
+              and all(t["finite"] and all(t["control"].values()) for t in rec["train"].values()))
+        if not ok:
+            failures.append(name)
+    del batch_data, images, masks
+    model = build_model("TransFuse_L_384", num_domains=TRAIN_D, device="cuda", seed=seed)
+    gen = torch.Generator().manual_seed(seed + 3)
+    x = torch.randint(0, 256, (ZOO_L384_B, 384, 512, 3), generator=gen).float().cuda()
+    oh = torch.eye(TRAIN_D)[:ZOO_L384_B].cuda()
+    kernels.reset_launches()
+    with torch.no_grad(), deterministic():
+        maps = _maps(model(normalize(x), oh))
+    torch.cuda.synchronize()
+    _add_launches(launches)
+    l384 = {"model": "TransFuse_L_384", "B": ZOO_L384_B,
+            "shapes": [list(m.shape) for m in maps],
+            "finite": all(bool(torch.isfinite(m).all()) for m in maps)}
+    del model, maps, x
+    torch.cuda.empty_cache()
+    cli_rec = _zoo_cli(seed, launches)
+    features = _zoo_features(seed)
+    rec = {"phase": "zoo_more", "transfuse_l_384": l384, "cli": cli_rec,
+           "extract_features": features, "launches": launches,
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    shutil.rmtree(ZOO_DIR, ignore_errors=True)
+    if not (l384["finite"] and l384["shapes"] == [[ZOO_L384_B, 384, 512, 1]] * 3):
+        failures.append("TransFuse_L_384")
+    report = cli_rec["graft_report"] or ""
+    if not ("tensors grafted, 0 skipped" in report and cli_rec["total"]["Name"] == "Total"
+            and all(np.isfinite(cli_rec["total"][k]) for k in ("loss", "Di_score", "IOU"))):
+        failures.append("cli")
+    if not (features["max_rel_err"] <= ZOO_FEATURE_TOL and features["ids_equal"]
+            and all(v > 0 for k, v in features["card_launches"].items() if k in FORWARD)):
+        failures.append("extract_features")
+    if any(launches.values()):
+        failures.append(f"launches {launches}")
+    if failures:
+        raise RuntimeError(f"zoo phase failed: {failures}")
+    return {k: launches.get(k, 0) for k in FORWARD + BACKWARD}
+
+
 # ----------------------------------------------------------------- main
 
 
@@ -1990,10 +2286,11 @@ def main() -> int:
         timed("kfold_cli", phase_kfold_cli, args.seed)
         timed("determinism", phase_determinism, args.seed)
         dp_launches = timed("dp", phase_dp, args.seed)
+        zoo_launches = timed("zoo", phase_zoo, args.seed)
     paths = {"serving B=16 fp32": serving_launches, "train step fp32": step_launches,
              "Trainer.fit": trainer["launches"], "exported program B=16 fp32": export_launches,
              "remat train step fp32": remat_launches,
-             f"dp train step fp32, rank 0 of {DP_WORLD}": dp_launches}
+             f"dp train step fp32, rank 0 of {DP_WORLD}": dp_launches, "zoo": zoo_launches}
     line = []
     for name in REPLACES:
         s = summary[name]

@@ -30,6 +30,7 @@ DEFAULT_CONFIG: dict[str, Any] = {
     "debug": False,  # True: one batch per train/val/test loop, one epoch
     "seed": 42,
     "model": "MDViT",
+    "pretrained_folder": "",  # converted TransFuse backbones (convert_torch_weights)
     "data": {
         "name": ["isic2018", "PH2", "DMF", "SKD"],
         "data_folder": "./data/skin_lesion",

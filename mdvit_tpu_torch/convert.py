@@ -1,9 +1,9 @@
 """Carry ``mdvit_tpu`` model weights into the port.
 
 ``from_jax_variables(variables)`` takes the flax ``{'params', 'batch_stats'}``
-tree of a ``mdvit_tpu`` MDViT or BASE (every registry model of the paper's
-comparisons: Sup gate or none, shared or per-domain norms, the DASE and USE
-adapters, the MLPFM, MLP, DeepLabV3 and Transformer debranches) as numpy
+tree of a ``mdvit_tpu`` model (an MDViT or BASE of the paper's family: Sup
+gate or none, shared or per-domain norms, the DASE and USE adapters, the
+MLPFM, MLP, DeepLabV3 and Transformer debranches; or a comparator) as numpy
 arrays, nested or flat with ``'/'``-joined keys (as saved in an ``.npz``),
 and returns the port's ``state_dict``. It is the inverse of
 ``scripts/convert_reference_mdvit.py:torch_mdvit_to_flax`` (``dsn`` too):
@@ -20,7 +20,19 @@ and returns the port's ``state_dict``. It is the inverse of
 * the adapters and the debranches' modules keep their flax names, by the
   trunk's rules (``decoder{n}_mhsa`` → ``decoder{n}.mhsa_block``).
 
-Any key it does not map raises ``KeyError``.
+The comparators (SwinUnet, the Swin classifier, SwinUNETR, UTNet, the
+TransFuse family; a tree whose top holds ``patch_embed``, ``inc0``,
+``transformer`` or ``resnet``) keep the flax module names in the port, so their paths map
+as they are, '/' → '.', with the leaf rules above; the relative-position
+tables and the DeiT ``pos_embed`` keep their names and layout (the JAX DeiT
+has no cls token). A ``transp_conv`` kernel (flax ``ConvTranspose``, which
+does not turn its kernel) becomes the ``ConvTranspose2d`` weight
+(in, out, kh, kw) with both spatial axes flipped.
+
+Any key it does not map raises ``KeyError``. Given the port's ``model``,
+the result is held to it: each leaf maps to exactly one of its tensors, of
+the same shape, and every parameter and buffer is set, or ``ValueError``
+names what drifted.
 """
 from __future__ import annotations
 
@@ -118,11 +130,62 @@ def _is_dsn(flat: Mapping[str, np.ndarray]) -> bool:
                for k, v in flat.items())
 
 
-def from_jax_variables(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """flax MDViT or BASE variables → the port's ``state_dict`` (fp32 tensors)."""
+# the top-level flax modules of the comparators' trees
+_ZOO_TOPS = ("patch_embed", "inc0", "transformer", "resnet")
+# a comparator's leaves besides _LEAF's, kept as they are
+_ZOO_LEAVES = ("relative_position_bias_table", "pos_embed", "absolute_pos_embed")
+
+
+def _is_zoo(flat: Mapping[str, np.ndarray]) -> bool:
+    return any(k.partition("/")[2].split("/")[0] in _ZOO_TOPS for k in flat)
+
+
+def _zoo_leaf(path: str, arr: np.ndarray) -> tuple[str, torch.Tensor]:
+    """A comparator's flax leaf → (torch name, tensor)."""
+    mod, _, leaf = path.rpartition("/")
+    if leaf in _ZOO_LEAVES:
+        return path.replace("/", "."), torch.from_numpy(np.array(arr, np.float32))
+    if leaf not in _LEAF:
+        raise KeyError(f"no mapping for flax leaf {path!r}")
+    if leaf == "kernel" and mod.endswith("transp_conv"):  # (kh, kw, in, out), unturned
+        t = np.ascontiguousarray(np.transpose(arr[::-1, ::-1], (2, 3, 0, 1)), np.float32)
+        return f"{mod}/weight".replace("/", "."), torch.from_numpy(t)
+    t = _to_torch(arr) if leaf == "kernel" else torch.from_numpy(np.array(arr, np.float32))
+    return f"{mod}/{_LEAF[leaf]}".replace("/", "."), t
+
+
+def check_state(state: Mapping[str, torch.Tensor], model: torch.nn.Module) -> None:
+    """Raise ``ValueError`` unless ``state`` sets every tensor of
+    ``model.state_dict()`` with one of the same shape, and nothing else."""
+    want = model.state_dict()
+    problems = [f"unset: {k}" for k in want if k not in state]
+    problems += [f"no such tensor: {k}" for k in state if k not in want]
+    problems += [f"shape {tuple(v.shape)} for {k} {tuple(want[k].shape)}"
+                 for k, v in state.items() if k in want and v.shape != want[k].shape]
+    if problems:
+        raise ValueError("converted variables do not fit the model: "
+                         + "; ".join(problems[:20]))
+
+
+def from_jax_variables(variables: Mapping[str, Any],
+                       model: torch.nn.Module | None = None) -> dict[str, torch.Tensor]:
+    """flax variables of a ported model → the port's ``state_dict`` (fp32
+    tensors), held to ``model`` (``check_state``) when it is given."""
     flat = _flatten(variables)
-    dsn = _is_dsn(flat)
     state: dict[str, torch.Tensor] = {}
+    if _is_zoo(flat):
+        for key, arr in flat.items():
+            collection, _, path = key.partition("/")
+            if collection not in ("params", "batch_stats"):
+                raise KeyError(f"no mapping for flax collection of {key!r}")
+            name, t = _zoo_leaf(path, arr)
+            if name in state:
+                raise ValueError(f"two flax leaves map to {name}")
+            state[name] = t
+        if model is not None:
+            check_state(state, model)
+        return state
+    dsn = _is_dsn(flat)
     for key, arr in flat.items():
         collection, _, path = key.partition("/")
         if collection not in ("params", "batch_stats"):
@@ -139,4 +202,6 @@ def from_jax_variables(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
                     state[f"{mod}.{d}.{leaf}"] = _to_torch(a[d])
             else:
                 state[torch_name] = _to_torch(a)
+    if model is not None:
+        check_state(state, model)
     return state

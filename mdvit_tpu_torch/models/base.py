@@ -43,9 +43,12 @@ from mdvit_tpu_torch.ops.resize import resize_bilinear
 
 def split_seg(seg: Any) -> Tuple[torch.Tensor, torch.Tensor | None]:
     """(logits, aux logits or None) of a model's ``seg`` output: MDViT gives
-    a ``(logits, aux)`` tuple, BASE the logits alone (``steps.py:191-194``)."""
+    a ``(logits, aux)`` tuple, BASE and the comparators the logits alone
+    (``steps.py:191-194``), TransFuse its three deep-supervision maps
+    ``(map_x, map_1, map_2)``, of which eval and serving take map_2
+    (``steps.py:310-314``, ``scripts/predict.py:103-104``)."""
     if isinstance(seg, tuple):
-        return seg
+        return (seg[2], None) if len(seg) == 3 else seg
     return seg, None
 
 

@@ -113,17 +113,21 @@ class MDViT(FATEncoderDecoder):
 
     def forward(self, x: torch.Tensor, domain_onehot: torch.Tensor,
                 train: bool = False, out_feat: bool = False, aux_mode: str = "none",
-                gen: torch.Generator | None = None) -> dict[str, Any]:
+                gen: torch.Generator | None = None, out_seg: bool = True) -> dict[str, Any]:
         """x (B, H, W, 3) normalised images, domain_onehot (B, D); ``gen``
         drives dropout and stochastic depth when ``train``.
 
         Returns ``{"seg": (logits (B, H, W, 1), aux logits or None),
         "feat": (B, C₄) or None}``; ``feat`` is the spatial mean of stage 4
-        when ``out_feat``."""
+        when ``out_feat``. Without ``out_seg`` only the encoder runs and
+        ``seg`` is None (``mdvit.py:152-155``)."""
         if aux_mode not in ("none", "grouped", "select", "features"):
             raise ValueError(f"unknown aux_mode {aux_mode!r}")
-        encoder_outs, bridge_out, dec = self.forward_features(x, domain_onehot, train, gen)
+        encoder_outs, bridge_out, dec = self.forward_features(x, domain_onehot, train, gen,
+                                                              out_seg)
         feat = encoder_outs[3].mean(dim=(1, 2)) if out_feat else None
+        if not out_seg:
+            return {"seg": None, "feat": feat}
         # the 1×1 finalconv commutes with the upsample: conv at H/4, resize 1 channel
         logits = resize_bilinear(self.finalconv(dec), (x.shape[1], x.shape[2]))
         # what each debranch reads (mdvit.py:163-168)

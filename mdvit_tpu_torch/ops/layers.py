@@ -140,6 +140,25 @@ def fast_dropout(x: torch.Tensor, rate: float, train: bool, gen) -> torch.Tensor
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
+_CONSTANTS: dict = {}
+
+
+def device_constant(key, make, device: torch.device, dtype: torch.dtype | None = None
+                    ) -> torch.Tensor:
+    """``torch.from_numpy(make())`` on ``device`` (as ``dtype``), kept for
+    later calls under ``key``: the numpy constants a module bakes in (window
+    masks, relative-position indices), made once a device, as JAX bakes them
+    in at trace time. One made while a tracer runs (``torch.export``'s fake
+    tensors) is not kept."""
+    full = (key, device, dtype)
+    t = _CONSTANTS.get(full)
+    if t is None:
+        t = torch.from_numpy(make()).to(device=device, dtype=dtype)
+        if type(t) is torch.Tensor:
+            _CONSTANTS[full] = t
+    return t
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` on NHWC tensors, computing in ``compute_dtype``.
 
@@ -166,14 +185,15 @@ class Conv2d(nn.Conv2d):
 class Linear(nn.Linear):
     """``nn.Linear`` computing in ``compute_dtype``."""
 
-    def __init__(self, in_features: int, out_features: int,
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32):
-        super().__init__(in_features, out_features)
+        super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class _NormOwner(nn.Module):

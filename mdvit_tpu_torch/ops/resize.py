@@ -1,11 +1,14 @@
-"""Bilinear resize with ``align_corners=False`` (``mdvit_tpu/ops/resize.py``).
+"""Bilinear resizes (``mdvit_tpu/ops/resize.py``), NHWC.
 
 Separable, as the JAX package's ``align_corners=True`` resize is
-(``_ac_resize_matrix``): one (out, in) interpolation matrix an axis with
-half-pixel source coordinates (``F.interpolate``'s, no antialiasing), applied
-as two matrix products, over W and then over H. The backward is two products
-too: ``F.interpolate``'s CUDA backward accumulates with atomics, so its bits
-move from run to run, and ``torch.use_deterministic_algorithms`` refuses it.
+(``_ac_resize_matrix``): one (out, in) interpolation matrix an axis, applied
+as two matrix products. ``resize_bilinear`` takes half-pixel source
+coordinates (``F.interpolate(align_corners=False)``'s, no antialiasing),
+over W and then over H; ``resize_bilinear_align_corners`` takes
+s = o·(in−1)/(out−1) (UTNet's and TransFuse's upsamples), over H and then
+over W, as JAX does. The backward is two products too: ``F.interpolate``'s
+CUDA backward accumulates with atomics, so its bits move from run to run,
+and ``torch.use_deterministic_algorithms`` refuses it.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-_MATRICES: dict[tuple[int, int, torch.device], torch.Tensor] = {}
+from mdvit_tpu_torch.ops.layers import device_constant
 
 
 def resize_matrix(in_size: int, out_size: int) -> np.ndarray:
@@ -33,16 +36,31 @@ def resize_matrix(in_size: int, out_size: int) -> np.ndarray:
     return m
 
 
-def _matrix(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
-    """The matrix on ``device``, kept for later calls; one made while a
-    tracer runs (``torch.export``'s fake tensors) is not kept."""
-    key = (in_size, out_size, device)
-    m = _MATRICES.get(key)
-    if m is None:
-        m = torch.from_numpy(resize_matrix(in_size, out_size)).to(device)
-        if type(m) is torch.Tensor:
-            _MATRICES[key] = m
+def ac_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """(out, in) fp32 weights of ``F.interpolate(mode="bilinear",
+    align_corners=True)`` along one axis (``resize.py:_ac_resize_matrix``):
+    source s = o·(in−1)/(out−1); taps ⌊s⌋ and ⌊s⌋ + 1 (clamped at in − 1)."""
+    m = np.zeros((out_size, in_size), np.float32)
+    if out_size == 1:
+        m[0, 0] = 1.0
+        return m
+    scale = (in_size - 1) / (out_size - 1)
+    for o in range(out_size):
+        s = o * scale
+        s0 = int(np.floor(s))
+        f = s - s0
+        s0 = min(s0, in_size - 1)
+        s1 = min(s0 + 1, in_size - 1)
+        m[o, s0] += 1.0 - f
+        m[o, s1] += f
     return m
+
+
+def _matrix(in_size: int, out_size: int, device: torch.device,
+            align_corners: bool = False) -> torch.Tensor:
+    make = ac_resize_matrix if align_corners else resize_matrix
+    return device_constant((make.__name__, in_size, out_size),
+                           lambda: make(in_size, out_size), device)
 
 
 def resize_bilinear(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
@@ -57,4 +75,21 @@ def resize_bilinear(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
         y = (_matrix(wi, w, x.device) @ y.reshape(b * hi, wi, c)).reshape(b, hi, w, c)
     if hi != h:  # (H_out, H_in) @ (B, H_in, W·C)
         y = (_matrix(hi, h, x.device) @ y.reshape(b, hi, w * c)).reshape(b, h, w, c)
+    return y.to(x.dtype)
+
+
+def resize_bilinear_align_corners(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
+    """``F.interpolate(mode="bilinear", align_corners=True)`` of NHWC ``x``
+    to ``(B, size[0], size[1], C)`` in fp32, over H then W
+    (``resize.py:resize_bilinear_align_corners``); returns ``x`` itself when
+    the size already matches."""
+    h, w = int(size[0]), int(size[1])
+    b, hi, wi, c = x.shape
+    if hi == h and wi == w:
+        return x
+    y = x.float()
+    if hi != h:  # (H_out, H_in) @ (B, H_in, W·C)
+        y = (_matrix(hi, h, x.device, True) @ y.reshape(b, hi, wi * c)).reshape(b, h, wi, c)
+    if wi != w:  # (W_out, W_in) @ (B·H, W_in, C)
+        y = (_matrix(wi, w, x.device, True) @ y.reshape(b * h, wi, c)).reshape(b, h, w, c)
     return y.to(x.dtype)

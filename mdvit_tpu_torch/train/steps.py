@@ -15,7 +15,10 @@ Autograd prunes from the second pull the work no ``domain_layer`` parameter
 needs; a model with no Sup gate has none, and its step makes one pull.
 Losses are summed over domains, each computed on its own domain's group of
 the domain-contiguous batch. ``mkd=False`` is BASE's single objective, the
-sum of the per-domain segmentation losses, in one pull.
+sum of the per-domain segmentation losses, in one pull. A model whose
+``seg`` is three maps (TransFuse) trains on its deep-supervision loss
+(``deep_supervision_losses``), in one pull, whatever ``mkd`` says, as in
+JAX; its eval takes map_2.
 
 The step augments on the device by default (``device_augment``, as in JAX),
 drawing from a generator on the model's device (``step.aug_generator``);
@@ -67,7 +70,8 @@ from mdvit_tpu_torch.device import deterministic, no_tf32
 from mdvit_tpu_torch.models.base import split_seg
 from mdvit_tpu_torch.ops.norm import running_stats_frozen
 from mdvit_tpu_torch.parallel.mesh import Shard, all_reduce_sum, current_shard, sharded
-from mdvit_tpu_torch.train.losses import bce_terms, dice_loss_from_sums
+from mdvit_tpu_torch.train.losses import (bce_terms, dice_loss_from_sums, structure_terms,
+                                          structure_weights)
 
 
 def _dice_iou(inter, sum_pred, sum_true):
@@ -78,6 +82,15 @@ def _dice_iou(inter, sum_pred, sum_true):
     dice = torch.where(total > 0, 2 * inter / total.clamp(min=1), zero)
     union = total - inter
     return dice, torch.where(union > 0, inter / union.clamp(min=1), zero)
+
+
+def _domain_onehot(shard: Shard, b: int, num_domains: int,
+                   device: torch.device) -> torch.Tensor:
+    """(b, D) one-hot of the domain of each of this shard's rows of a
+    domain-contiguous batch of D equal groups."""
+    per = (shard.total or b) // num_domains
+    domain = (shard.row0 + torch.arange(b, device=device)) // per
+    return (domain[:, None] == torch.arange(num_domains, device=device)).float()
 
 
 def per_domain_losses(logits: torch.Tensor, aux_logits: torch.Tensor,
@@ -91,9 +104,7 @@ def per_domain_losses(logits: torch.Tensor, aux_logits: torch.Tensor,
     ``dice_loss(aux_probs, probs)`` with no detach, as in JAX."""
     shard = current_shard()
     b = logits.shape[0]
-    per = (shard.total or b) // num_domains
-    domain = (shard.row0 + torch.arange(b, device=logits.device)) // per
-    onehot = (domain[:, None] == torch.arange(num_domains, device=logits.device)).float()
+    onehot = _domain_onehot(shard, b, num_domains, logits.device)
     lg, ag, y = logits.float(), aux_logits.float(), labels.float()
     p, a = torch.sigmoid(lg), torch.sigmoid(ag)
     pred = (p > 0.5).float()
@@ -109,6 +120,30 @@ def per_domain_losses(logits: torch.Tensor, aux_logits: torch.Tensor,
     aux = abce / n + dice_loss_from_sums(ay, aa, yy)
     kt = dice_loss_from_sums(ap, aa, pp)
     return (seg, aux, kt, *_dice_iou(inter, sp, yy))
+
+
+def deep_supervision_losses(maps: Sequence[torch.Tensor], labels: torch.Tensor,
+                            num_domains: int):
+    """TransFuse's per-domain loss and (dice, iou), each (D,), from its three
+    maps ``(map_x, map_1, map_2)`` (``steps.py:165-190``): per domain
+    0.5·L(map_2) + 0.3·L(map_1) + 0.2·L(map_x), L ``structure_loss`` (a
+    mean over the domain's images); dice and IoU of σ(map_2). Each is formed
+    from per-domain sums over images, summed over the shard's ranks first."""
+    shard = current_shard()
+    map_x, map_1, map_2 = maps
+    b = labels.shape[0]
+    onehot = _domain_onehot(shard, b, num_domains, labels.device)
+    y = labels.float()
+    weit = structure_weights(y)
+    pred = (torch.sigmoid(map_2.float()) > 0.5).float()
+    dims = (1, 2, 3)
+    rows = torch.stack([structure_terms(map_2, y, weit), structure_terms(map_1, y, weit),
+                        structure_terms(map_x, y, weit), (pred * y).sum(dim=dims),
+                        pred.sum(dim=dims), y.sum(dim=dims),
+                        torch.ones(b, device=y.device)], dim=1)            # (B, 7)
+    l2, l1, lx, inter, sp, st, n = all_reduce_sum(onehot.t() @ rows, shard.group).unbind(1)
+    loss = (0.5 * l2 + 0.3 * l1 + 0.2 * lx) / n.clamp(min=1.0)
+    return (loss, *_dice_iou(inter, sp, st))
 
 
 class _Recompute:
@@ -194,8 +229,13 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                                                  _Recompute(gen, entry)))
         else:
             out = forward(x, onehot)
-        logits, aux_logits = split_seg(out["seg"])
-        if mkd:
+        if isinstance(out["seg"], tuple) and len(out["seg"]) == 3:
+            # TransFuse's deep supervision: one objective, one pull, no MKD
+            loss_d, dice_d, iou_d = deep_supervision_losses(out["seg"], y, num_domains)
+            metrics = {"loss": loss_d.sum(), "loss_per_domain": loss_d}
+            grads = grads_of(loss_d.sum(), params)
+        elif mkd:
+            logits, aux_logits = split_seg(out["seg"])
             seg_d, aux_d, kt_d, dice_d, iou_d = per_domain_losses(
                 logits, aux_logits, y, num_domains)
             multi_seg, multi_aux, multi_kt = seg_d.sum(), aux_d.sum(), kt_d.sum()
@@ -210,6 +250,7 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                 for i, g in zip(masked, g_uni):
                     grads[i] = g
         else:  # BASE-style single objective
+            logits = split_seg(out["seg"])[0]
             seg_d, _, _, dice_d, iou_d = per_domain_losses(logits, logits, y, num_domains)
             metrics = {"loss": seg_d.sum(), "loss_per_domain": seg_d}
             grads = grads_of(seg_d.sum(), params)

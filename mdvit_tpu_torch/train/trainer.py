@@ -20,10 +20,13 @@ is no group and no collective.
 
 The port trains the models of the paper's comparisons: MDViT
 (any debranch, with or without the Sup gate), MDViT_DSN, BASE (± Sup),
-BASE_DSN, BASE_DASE and BASE_USE; a model whose name starts with MDViT
-trains with the MKD objective, the others with the single one. The other
-models of the JAX registry raise ``NotImplementedError`` naming their
-ROADMAP item.
+BASE_DSN, BASE_DASE, BASE_USE, and the segmentation comparators SwinUnet,
+SwinUNETR, UTNet, TransFuse_S, TransFuse_S_adapt and TransFuse_L; a model
+whose name starts with MDViT trains with the MKD objective, TransFuse with
+its deep supervision, the others with the single one. ``pretrained_folder``
+grafts converted ImageNet backbones into a TransFuse
+(``train.pretrained``). The MPViT and CoaT classifiers raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -46,6 +49,7 @@ from mdvit_tpu_torch.models.registry import build_model
 from mdvit_tpu_torch.parallel.mesh import Mesh, local_device, make_mesh
 from mdvit_tpu_torch.train import checkpoints as ckpt
 from mdvit_tpu_torch.train.optim import build_optimizer, steplr
+from mdvit_tpu_torch.train.pretrained import apply_pretrained
 from mdvit_tpu_torch.train.steps import counts_to_metrics, make_eval_step, make_train_step
 from mdvit_tpu_torch.utils.logging import ScalarLogger
 
@@ -162,6 +166,10 @@ class Trainer:
         self.logger = ScalarLogger(exp_dir if self.is_main else None)
         self.device = resolve_device(local_device(config.get("device")))
         self.model = build_model_from_config(config, self.device)
+        if config.get("pretrained_folder"):  # TransFuse starts from ImageNet backbones
+            report = apply_pretrained(self.model, config.model, str(config.pretrained_folder))
+            if report:
+                self.say(report)
         self.mkd = _is_mkd_model(config.model)
 
         self.names = list(config.data.name)

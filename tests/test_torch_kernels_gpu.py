@@ -552,6 +552,40 @@ def test_train_step_repeats_its_bits_on_card(dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name,img", [("TransFuse_S", 64), ("UTNet", 128), ("SwinUNETR", 64),
+                                      ("SwinUnet", 64)])
+def test_zoo_step_repeats_its_bits_on_card(name, img):
+    """Two steps of a comparator at its full widths (its own dropout, no
+    augmentation) from one state give the same losses, gradients,
+    parameters and BN stats, bit for bit, and launch none of the kernels:
+    the max-pools', ``table[index]``'s and the transposed conv's backwards
+    take deterministic paths under ``device.deterministic``."""
+    from mdvit_tpu_torch.models.registry import build_model
+    from mdvit_tpu_torch.train.optim import build_optimizer
+    from mdvit_tpu_torch.train.steps import make_train_step
+
+    _need_card()
+    rs = np.random.RandomState(6)
+    imgs = [torch.from_numpy(rs.randint(0, 256, (3, img, img, 3)).astype(np.uint8)).cuda()
+            for _ in range(4)]
+    masks = [torch.from_numpy(rs.randint(0, 2, (3, img, img)).astype(np.uint8)).cuda()
+             for _ in range(4)]
+    runs = []
+    kernels.reset_launches()
+    for _ in range(2):
+        model = build_model(name, img_size=img, device="cuda", seed=1)
+        opt, sched = build_optimizer(model, steps_per_epoch=2)
+        metrics = make_train_step(model, opt, sched, 4, mkd=False, device_augment=False)(
+            imgs, masks, torch.tensor([[0, 2]] * 4, device="cuda"))
+        runs.append((metrics, [p.grad for p in model.parameters()], model.state_dict()))
+    (m1, g1, s1), (m2, g2, s2) = runs
+    assert all(torch.equal(v, m2[k]) for k, v in m1.items())
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+    assert all(torch.equal(v, s2[k]) for k, v in s1.items())
+    assert not any(kernels.LAUNCHES.values())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("src,dst,c", [((8, 8), (64, 64), 64), ((64, 64), (256, 256), 1)])
 def test_resize_backward_repeats_its_bits_on_card(src, dst, c):
     """The separable resize's backward gives the same bits twice (the

@@ -173,9 +173,9 @@ def test_resume_restores_identical_state(tmp_path):
 
 
 @pytest.mark.parametrize("over,match", [
-    ({"model": "SwinUnet"}, "queue A item 8"),
-    ({"model": "UTNet"}, "queue A item 8"),
-    ({"model": "TransFuse_S"}, "queue A item 8"),
+    ({"model": "coat_tiny"}, "queue A item 4b"),
+    ({"model": "mpvit_tiny"}, "queue A item 4b"),
+    ({"model": "coat_lite_tiny"}, "queue A item 4b"),
 ])
 def test_unported_models_raise(tmp_path, over, match):
     cfg = load_config(overrides={**_overrides(**over), "device": "cpu"})
@@ -262,9 +262,9 @@ def test_entry_points_take_every_model(tmp_path):
     for k, v in base_copy.state_dict().items():
         assert torch.equal(back.state_dict()[k], v), k
     blob = torch.load(path, weights_only=True)
-    blob["model"] = blob["config"]["name"] = "SwinUnet"
+    blob["model"] = blob["config"]["name"] = "coat_tiny"
     torch.save(blob, path)
-    with pytest.raises(ValueError, match="SwinUnet"):
+    with pytest.raises(ValueError, match="coat_tiny"):
         load_weights(path, device="cpu")
 
 
