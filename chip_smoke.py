@@ -16,12 +16,17 @@ Phases, each printing JSON lines; any failure exits non-zero:
             ``F.conv2d(groups=C)`` as a library yardstick, beside the bound,
             and the kernel's eager time (host launch cost included); then A
             the same way at B=1 (``kernel_b1`` records, outside the per-step
-            sums);
+            sums); then (``kernel_classifier`` records) A at every (N, C, ch)
+            the ten classifiers send at 224² and B, C on CoaT's views (the
+            image rows of (B, H·W + 1, ·) tokens) at C = 152 and 216, B=16,
+            fp32 and bf16: the check, bit-equal on a second call, device ms
+            (plain ms in fp32) beside the bound;
 3. backward each backward op (``torch.ops.mdvit.*_bwd``) against its plain
             backward at the same shapes and types, two calls bit-equal,
             and the same times; the
             library yardstick of CPE/CRPE is cuDNN's backward of their
             ``F.conv2d(groups=C)`` forms (``aten.convolution_backward``);
+            A′, B′, C′ at the classifiers' shapes as A, B, C in phase 2;
    split    A's device launches per call at B=16 and B=1, and A′'s, B′'s and
             C′'s at B=16 (2 each: A's and A′'s partials and apply kernels;
             B′'s and C′'s fused tile kernel and reduce), and device ms per
@@ -132,7 +137,19 @@ Phases, each printing JSON lines; any failure exits non-zero:
             checkpoints (the graft report, ``test()``), and
             ``extract_features`` of the full-width MDViT on the card against
             the CPU (features within 1e-4 of their scale, ids equal);
-15. the ``kernels`` line (launches from the trainer's ``fit``, and by path
+15. classifiers  the ten MPViT and CoaT classifiers at their published
+            widths, 224², B=16, random weights from ``--seed`` (MPViT's BN
+            calibrated as the family's), one ``classifier`` line each: the
+            fp32 forward with every launch counter read around it (A, B, C
+            once a block, ``CLASSIFIERS``), its logits and feat against the
+            plain versions (within 1e-4·max(1, max|logit|)); one
+            cross-entropy backward pull in fp32 with the counters read
+            around it (A′, B′, C′ once a block), its gradients against the
+            plain backward (relative L2); the bf16 forward (finite, and
+            against its plain versions); forward img/s, device-busy ms,
+            idle share and peak in fp32 and bf16; A's and A′'s device ms a
+            call summed from the ``kernel_classifier`` records;
+16. the ``kernels`` line (launches from the trainer's ``fit``, and by path
    under ``launches_by_path``, ``zoo`` all 0), the card's name and power
    limit, and last the ``{"ok": true, "device": ...}`` line. Each phase
    prints its seconds.
@@ -179,11 +196,13 @@ from mdvit_tpu_torch.data.augment import augment_batch, augment_raw, sample_aug_
 from mdvit_tpu_torch.data.loader import gather_batch
 from mdvit_tpu_torch.data.preprocess import normalize
 from mdvit_tpu_torch.device import deterministic, no_tf32
+from mdvit_tpu_torch.models import coat, mpvit
 from mdvit_tpu_torch.models.base import split_seg
 from mdvit_tpu_torch.models.registry import build_mdvit, build_model
 from mdvit_tpu_torch.ops import dwconv, kernels
 from mdvit_tpu_torch.ops import factorized_attention as fa
 from mdvit_tpu_torch.ops.layers import fast_normal, fast_uniform
+from mdvit_tpu_torch.ops.norm import DomainBatchNorm
 from mdvit_tpu_torch.ops.resize import resize_bilinear
 from mdvit_tpu_torch.predict import load_experiment, make_forward
 from mdvit_tpu_torch.train import checkpoints as ckpt
@@ -369,6 +388,21 @@ ZOO_CLI_SIZES = (8, 4)
 ZOO_FEATURE_SETS = ("isic2018", "PH2")
 ZOO_FEATURE_TOL = 1e-4
 ZOO_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_zoo"
+# the classifiers phase: the ten MPViT and CoaT classifiers at their
+# published widths (the JAX builders'), 224², B = 16, and each one's blocks:
+# the launches of each of A, B and C a forward, and of A′, B′ and C′ a
+# backward pull (MPViT Σ num_path·num_layers; CoaT Σ serial_depths +
+# 3·parallel_depth, a parallel block attending at scales 2 to 4); forwards
+# timed a dtype (after 2 warm-up calls)
+CLASSIFIERS = {"mpvit_tiny": 23, "mpvit_xsmall": 23, "mpvit_small": 38, "mpvit_base": 44,
+               "coat_tiny": 26, "coat_mini": 26, "coat_small": 26, "coat_lite_tiny": 8,
+               "coat_lite_mini": 8, "coat_lite_small": 16}
+CLS_IMG = 224
+CLS_TIMED = 8
+# CoaT's CPE and CRPE inputs, the image rows of (B, H·W + 1, ·) tokens, as
+# (H, W, C) at 224²: coat_tiny's 152 channels and coat_mini's 216
+COAT_VIEWS = [(56, 56, 152), (28, 28, 152), (14, 14, 152), (7, 7, 152), (28, 28, 216),
+              (14, 14, 216), (7, 7, 216)]
 
 
 def emit(obj) -> None:
@@ -542,6 +576,8 @@ def phase_kernels(seed: int) -> dict:
                 _add(summary[kind], rec, FWD_CALLS[stage])
                 del t, got
     failures += [r for r in attention_b1(seed) if not r["ok"]]
+    summary["classifier_shapes"] = classifier_kernels(seed, backward=False)
+    failures += [r for r in summary["classifier_shapes"] if not r["ok"]]
     if failures:
         raise RuntimeError(f"{len(failures)} kernel check(s) out of tolerance")
     return summary
@@ -574,6 +610,132 @@ def attention_b1(seed: int) -> list:
         emit(rec)
         out.append(rec)
         del q, k, v, got
+    return out
+
+
+def classifier_attention_calls(name: str) -> dict:
+    """{(N, C, ch): calls of A a forward} of classifier ``name`` at 224², 8
+    heads: MPViT's paths see N = H·W tokens, CoaT's blocks N = H·W + 1 (the
+    cls row), its parallel blocks one call at each of scales 2 to 4."""
+    grids = [CLS_IMG // 4 // 2 ** i for i in range(4)]
+    calls: dict = defaultdict(int)
+    if name in mpvit.CONFIGS:
+        cfg = mpvit.CONFIGS[name]
+        for i, g in enumerate(grids):
+            c = cfg["embed_dims"][i]
+            calls[(g * g, c, c // 8)] += cfg["num_path"][i] * cfg["num_layers"][i]
+    else:
+        cfg = coat.CONFIGS[name]
+        for i, g in enumerate(grids):
+            c = cfg["embed_dims"][i]
+            calls[(g * g + 1, c, c // 8)] += (cfg["serial_depths"][i]
+                                               + (cfg["parallel_depth"] if i else 0))
+    return dict(calls)
+
+
+def classifier_kernels(seed: int, backward: bool) -> list:
+    """``kernel_classifier`` records: A (``backward``: A′) at every (N, C, ch)
+    the classifiers send, q, k, v slices of one (B, N, 3C) projection; B and
+    C (B′ and C′) on CoaT's views (``COAT_VIEWS``): x the image rows of
+    (B, H·W + 1, C) tokens, q and v those of a (B, H·W + 1, 3C) projection.
+    B=16, fp32 and bf16: the check against the plain version, bit-equal on a
+    second call, device ms (the plain version's in fp32), the bound, and for
+    B–C′ the library yardstick of phases 2 and 3 on the same views."""
+    gen = torch.Generator().manual_seed(seed + (13 if backward else 12))
+
+    def randn(*shape, dtype, std=1.0):
+        return (torch.randn(*shape, generator=gen) * std).to("cuda", dtype)
+
+    shapes = sorted({s for name in CLASSIFIERS for s in classifier_attention_calls(name)})
+    cases = ([("factorized_attention", s) for s in shapes]
+             + [(k, v) for k in ("cpe_conv", "crpe_conv") for v in COAT_VIEWS])
+    out = []
+    for (kind, shape), dtype in itertools.product(cases, (torch.float32, torch.bfloat16)):
+        item = 2 if dtype == torch.bfloat16 else 4
+        w = lib_fn = None
+        if kind == "factorized_attention":
+            n, c, ch = shape
+            where = {"N": n, "C": c, "ch": ch}
+            qkv = randn(BATCH, n, 3 * c, dtype=dtype)
+            q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+            n_el = BATCH * n * c
+            if backward:
+                args = (q, k, v, randn(BATCH, n, c, dtype=dtype), ch, ch ** -0.5)
+                run = lambda: torch.ops.mdvit.factorized_attention_bwd(*args)
+                plain = lambda: fa.factorized_attention_bwd_ref(*args)
+                n_image, n_bytes, flops = 3, 7 * n_el * item, 10 * n_el * ch
+            else:
+                run = lambda: fa.factorized_attention(q, k, v, ch, ch ** -0.5)
+                plain = lambda: fa.factorized_attention_ref(q, k, v, ch, ch ** -0.5)
+                n_image, n_bytes, flops = 1, 4 * n_el * item, 4 * n_el * ch
+        else:
+            h, wd, c = shape
+            where = {"H": h, "W": wd, "C": c, "view": "rows 1.. of (B, H*W+1, .) tokens"}
+            n_el = BATCH * h * wd * c
+            g = randn(BATCH, h, wd, c, dtype=dtype)
+            if kind == "cpe_conv":
+                x = randn(BATCH, h * wd + 1, c, dtype=dtype)[:, 1:].unflatten(1, (h, wd))
+                w = randn(3, 3, c, std=(2 / 9) ** 0.5, dtype=dtype)
+                b = randn(c, std=0.1, dtype=dtype)
+                if backward:
+                    run = lambda: torch.ops.mdvit.cpe_conv_bwd(x, w, g)
+                    plain = lambda: dwconv.cpe_conv_bwd_ref(x, w, g)
+                    n_image = 1
+                    n_bytes = 3 * n_el * item + 9 * c * item + 10 * c * 4
+                    flops = 4 * 9 * n_el + 2 * n_el
+                else:
+                    run = lambda: dwconv.cpe_conv(x, w, b)
+                    plain = lambda: dwconv.cpe_conv_ref(x, w, b)
+                    n_image = 1
+                    n_bytes, flops = 2 * n_el * item + 10 * c * item, 2 * 9 * n_el + 2 * n_el
+            else:
+                qkv = randn(BATCH, h * wd + 1, 3 * c, dtype=dtype)[:, 1:].unflatten(1, (h, wd))
+                q, v = qkv[..., :c], qkv[..., 2 * c:]
+                w = randn(7, 7, c, std=(2 / 49) ** 0.5, dtype=dtype)
+                b = randn(c, std=0.1, dtype=dtype)
+                if backward:
+                    run = lambda: torch.ops.mdvit.crpe_conv_bwd(q, v, w, b, g)
+                    plain = lambda: dwconv.crpe_conv_bwd_ref(q, v, w, b, g)
+                    n_image = 2
+                    n_bytes = 5 * n_el * item + 50 * c * item + 50 * c * 4
+                    flops = 6 * 49 * n_el + 4 * n_el
+                else:
+                    run = lambda: dwconv.crpe_conv(q, v, w, b)
+                    plain = lambda: dwconv.crpe_conv_ref(q, v, w, b)
+                    n_image = 1
+                    n_bytes, flops = 3 * n_el * item + 50 * c * item, 2 * 49 * n_el + 2 * n_el
+            # the depthwise conv alone (no residual, no gate), as phases 2 and 3 time it
+            k = w.shape[0]
+            img_nchw = (x if kind == "cpe_conv" else v).permute(0, 3, 1, 2)
+            w_oihw = w.permute(2, 0, 1).unsqueeze(1).contiguous()
+            if backward:
+                g_nchw = g.permute(0, 3, 1, 2)
+                lib_fn = lambda: torch.ops.aten.convolution_backward(
+                    g_nchw, img_nchw, w_oihw, [c], [1, 1], [k // 2] * 2, [1, 1], False,
+                    [0, 0], c, [True, True, True])
+            else:
+                lib_fn = lambda: F.conv2d(img_nchw, w_oihw, b, padding=k // 2, groups=c)
+        with torch.no_grad():
+            got, again = run(), run()
+            torch.cuda.synchronize()
+            if backward:
+                res = _compare_grads(_weights_apart(got, w), plain(), dtype, n_image)
+            else:
+                res = compare(got, plain(), dtype)
+                got, again = (got,), (again,)
+            res["bit_equal_repeat"] = all(torch.equal(a, e) for a, e in zip(got, again))
+            res["ok"] &= res["bit_equal_repeat"]
+            ms = device_ms(run)
+            plain_ms = device_ms(plain) if dtype == torch.float32 else None
+            library_ms = device_ms(lib_fn) if lib_fn else None
+        b_ms, b_by = bound_ms(n_bytes, flops)
+        rec = {"phase": "kernel_classifier", "kernel": kind + ("_bwd" if backward else ""),
+               "B": BATCH, **where, "dtype": str(dtype).replace("torch.", ""), **res,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "roofline_share": b_ms / ms}
+        emit(rec)
+        out.append(rec)
+        del got, again, run, plain, lib_fn
     return out
 
 
@@ -679,6 +841,8 @@ def phase_backward(seed: int) -> dict:
                     failures.append(rec)
                 _add(summary[kind], rec, BWD_CALLS[stage])
                 del t, got, again, lib_fn
+    summary["classifier_bwd_shapes"] = classifier_kernels(seed, backward=True)
+    failures += [r for r in summary["classifier_bwd_shapes"] if not r["ok"]]
     if failures:
         raise RuntimeError(f"{len(failures)} backward kernel check(s) failed")
     return summary
@@ -2231,6 +2395,138 @@ def phase_zoo(seed: int) -> dict:
     return {k: launches.get(k, 0) for k in FORWARD + BACKWARD}
 
 
+# ----------------------------------------------------------------- phase 15
+
+
+def _cls_input(seed: int):
+    """B=16 normal images at 224² and their labels."""
+    gen = torch.Generator().manual_seed(seed + 17)
+    x = torch.randn(BATCH, CLS_IMG, CLS_IMG, 3, generator=gen)
+    return x.cuda(), torch.randint(0, 1000, (BATCH,), generator=gen).cuda()
+
+
+def _cls_model(name: str, dtype, seed: int, x):
+    """The registry model on the card in eval mode, its BNs (MPViT's)
+    calibrated as the family's are."""
+    model = build_model(name, dtype=dtype, device="cuda", seed=seed)
+    if any(isinstance(m, DomainBatchNorm) for m in model.modules()):
+        _calibrate_bn(model, x, None, FAMILY_BN_PASSES)
+    return model.eval()
+
+
+def _kernel_sums(calls: dict, records: list, kind: str) -> dict:
+    """Device ms and bound ms of ``kind`` summed over one forward's (or
+    backward pull's) calls, per dtype, from the ``kernel_classifier`` records."""
+    by = {(r["N"], r["C"], r["ch"], r["dtype"]): r for r in records if r["kernel"] == kind}
+    return {d: {k: sum(n * by[(*s, d)][k] for s, n in calls.items())
+                for k in ("ms", "bound_ms")} for d in ("float32", "bfloat16")}
+
+
+def classifier_row(name: str, seed: int, x, labels, shape_records: list) -> dict:
+    """One ``classifier`` record (phase 15)."""
+    t0 = time.perf_counter()
+    model = _cls_model(name, torch.float32, seed, x)
+    kernels.reset_launches()
+    with torch.no_grad():
+        out = model(x)
+    torch.cuda.synchronize()
+    fwd = dict(kernels.LAUNCHES)
+    with torch.no_grad(), plain_versions():
+        kernels.reset_launches()
+        want = model(x)
+        torch.cuda.synchronize()
+        plain_launches = sum(kernels.LAUNCHES.values())
+    scale = max(1.0, want["logits"].abs().max().item())
+    logit_err = (out["logits"] - want["logits"]).abs().max().item() / scale
+    feat_err = ((out["feat"] - want["feat"]).abs().max().item()
+                / max(1.0, want["feat"].abs().max().item()))
+    finite = bool(torch.isfinite(out["logits"]).all()) and bool(torch.isfinite(out["feat"]).all())
+    shape = list(out["logits"].shape)
+    del out, want
+
+    # one cross-entropy backward pull through the kernels, every counter read
+    # around it, then the same through the plain versions from the same weights
+    kernels.reset_launches()
+    F.cross_entropy(model(x)["logits"], labels).backward()
+    torch.cuda.synchronize()
+    bwd = dict(kernels.LAUNCHES)
+    grads = [p.grad for p in model.parameters()]
+    model.zero_grad(set_to_none=True)
+    with plain_versions():
+        F.cross_entropy(model(x)["logits"], labels).backward()
+    num = sum(((g - p.grad) ** 2).sum().item() for g, p in zip(grads, model.parameters()))
+    den = sum((p.grad ** 2).sum().item() for p in model.parameters())
+    grad_l2 = (num / den) ** 0.5
+    model.zero_grad(set_to_none=True)
+    del grads
+
+    model16 = _cls_model(name, torch.bfloat16, seed, x)
+    with torch.no_grad():
+        l16 = model16(x)["logits"].float()
+        with plain_versions():
+            p16 = model16(x)["logits"].float()
+    bf16 = {"finite": bool(torch.isfinite(l16).all()),
+            "rel_err_vs_plain": (l16 - p16).abs().max().item() / max(1.0, p16.abs().max().item())}
+    del l16, p16
+
+    speed = {}
+    for dtype_name, m in (("float32", model), ("bfloat16", model16)):
+        call = lambda: m(x)
+        with torch.no_grad():
+            _reset_peak()
+            t = _time_calls(call, BATCH, CLS_TIMED, warmup=2)
+            peak = torch.cuda.max_memory_allocated()
+            p = _profile_calls(call, reps=2, cpu=False)
+        speed[dtype_name] = {"img_per_s": t["img_per_s"], "latency_ms_mean": t["latency_ms_mean"],
+                             "device_busy_ms": p["device_busy_ms"],
+                             "idle_share": 1 - p["device_busy_ms"] / t["latency_ms_mean"],
+                             "device_ops_per_call": p["device_ops_per_call"],
+                             "attention_fwd_ms_per_call": p["attention_fwd_ms_per_call"],
+                             "peak_mib": peak / 2 ** 20}
+    del model, model16
+    torch.cuda.empty_cache()
+    calls = classifier_attention_calls(name)
+    return {"phase": "classifier", "model": name, "img": CLS_IMG, "B": BATCH,
+            "blocks": CLASSIFIERS[name], "logits_shape": shape, "forward_launches": fwd,
+            "backward_pull_launches": bwd, "plain_launches": plain_launches,
+            "logit_scale": scale, "logit_rel_err": logit_err, "feat_rel_err": feat_err,
+            "tol_rel": MODEL_REL_TOL, "finite": finite, "grad_l2_rel_err": grad_l2,
+            "grad_l2_tol": GRAD_L2_TOL, "bf16": bf16, "speed": speed,
+            "attention_calls": {f"N{n}_C{c}_ch{ch}": k for (n, c, ch), k in calls.items()},
+            "A_per_forward": _kernel_sums(calls, shape_records, "factorized_attention"),
+            "A_bwd_per_pull": _kernel_sums(calls, shape_records, "factorized_attention_bwd"),
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_classifiers(seed: int, summary: dict) -> dict:
+    """``classifier_row`` for each of ``CLASSIFIERS``; fails unless every
+    gate holds. Returns the launches of each kernel over the ten fp32
+    forwards and backward pulls, the phase's main path."""
+    x, labels = _cls_input(seed)
+    records = summary["classifier_shapes"] + summary["classifier_bwd_shapes"]
+    total = dict.fromkeys(FORWARD + BACKWARD, 0)
+    failures = []
+    for name, blocks in CLASSIFIERS.items():
+        if sum(classifier_attention_calls(name).values()) != blocks:
+            raise RuntimeError(f"{name}: its config gives another block count than {blocks}")
+        rec = classifier_row(name, seed, x, labels, records)
+        emit(rec)
+        for launches in (rec["forward_launches"], rec["backward_pull_launches"]):
+            for k in total:
+                total[k] += launches[k]
+        if not (rec["forward_launches"] == {k: blocks if k in FORWARD else 0 for k in total}
+                and rec["backward_pull_launches"] == dict.fromkeys(total, blocks)
+                and rec["plain_launches"] == 0 and rec["finite"] and rec["bf16"]["finite"]
+                and rec["logits_shape"] == [BATCH, 1000]
+                and rec["logit_rel_err"] <= MODEL_REL_TOL
+                and rec["feat_rel_err"] <= MODEL_REL_TOL
+                and rec["grad_l2_rel_err"] <= GRAD_L2_TOL):
+            failures.append(name)
+    if failures:
+        raise RuntimeError(f"classifier rows failed: {failures}")
+    return total
+
+
 # ----------------------------------------------------------------- main
 
 
@@ -2287,10 +2583,12 @@ def main() -> int:
         timed("determinism", phase_determinism, args.seed)
         dp_launches = timed("dp", phase_dp, args.seed)
         zoo_launches = timed("zoo", phase_zoo, args.seed)
+        classifier_launches = timed("classifiers", phase_classifiers, args.seed, summary)
     paths = {"serving B=16 fp32": serving_launches, "train step fp32": step_launches,
              "Trainer.fit": trainer["launches"], "exported program B=16 fp32": export_launches,
              "remat train step fp32": remat_launches,
-             f"dp train step fp32, rank 0 of {DP_WORLD}": dp_launches, "zoo": zoo_launches}
+             f"dp train step fp32, rank 0 of {DP_WORLD}": dp_launches, "zoo": zoo_launches,
+             "classifiers": classifier_launches}
     line = []
     for name in REPLACES:
         s = summary[name]

@@ -29,6 +29,12 @@ has no cls token). A ``transp_conv`` kernel (flax ``ConvTranspose``, which
 does not turn its kernel) becomes the ``ConvTranspose2d`` weight
 (in, out, kh, kw) with both spatial axes flipped.
 
+The classifiers MPViT and CoaT (a tree whose top holds ``stage0_invres`` or
+``cls_token1``) keep the flax module names too; inside them a CRPE's
+``w3/w5/w7``, ``b3/b5/b7`` become ``conv_list.{0,1,2}`` and an MPViT path's
+``block{i}`` becomes ``mhca_blks.{i}``, and CoaT's ``cls_token{i}``,
+``agg_weight`` and ``agg_bias`` keep their names and layout.
+
 Any key it does not map raises ``KeyError``. Given the port's ``model``,
 the result is held to it: each leaf maps to exactly one of its tensors, of
 the same shape, and every parameter and buffer is set, or ``ValueError``
@@ -136,14 +142,30 @@ _ZOO_TOPS = ("patch_embed", "inc0", "transformer", "resnet")
 _ZOO_LEAVES = ("relative_position_bias_table", "pos_embed", "absolute_pos_embed")
 
 
-def _is_zoo(flat: Mapping[str, np.ndarray]) -> bool:
-    return any(k.partition("/")[2].split("/")[0] in _ZOO_TOPS for k in flat)
+# the top-level flax modules that mark a classifier's tree (MPViT, CoaT), the
+# leaves it keeps as they are, and the rewrites inside its paths
+_CLASSIFIER_TOPS = ("stage0_invres", "cls_token1")
+_CLASSIFIER_LEAVES = re.compile(r"cls_token\d|agg_weight|agg_bias")
+_CLASSIFIER_RULES = [
+    *((rf"(^|/)(crpe\d*)/{p}{k}$", rf"\1\2/conv_list/{i}/{leaf}")
+      for i, k in enumerate((3, 5, 7)) for p, leaf in (("w", "kernel"), ("b", "bias"))),
+    (r"/block(\d+)/", r"/mhca_blks/\1/"),
+]
 
 
-def _zoo_leaf(path: str, arr: np.ndarray) -> tuple[str, torch.Tensor]:
-    """A comparator's flax leaf → (torch name, tensor)."""
+def _tops(flat: Mapping[str, np.ndarray]) -> set[str]:
+    return {k.partition("/")[2].split("/")[0] for k in flat}
+
+
+def _zoo_leaf(path: str, arr: np.ndarray, classifier: bool = False
+              ) -> tuple[str, torch.Tensor]:
+    """A comparator's (or, ``classifier``, an MPViT's or CoaT's) flax leaf →
+    (torch name, tensor)."""
+    if classifier:
+        for pat, repl in _CLASSIFIER_RULES:
+            path = re.sub(pat, repl, path)
     mod, _, leaf = path.rpartition("/")
-    if leaf in _ZOO_LEAVES:
+    if leaf in _ZOO_LEAVES or (classifier and _CLASSIFIER_LEAVES.fullmatch(leaf)):
         return path.replace("/", "."), torch.from_numpy(np.array(arr, np.float32))
     if leaf not in _LEAF:
         raise KeyError(f"no mapping for flax leaf {path!r}")
@@ -173,12 +195,14 @@ def from_jax_variables(variables: Mapping[str, Any],
     tensors), held to ``model`` (``check_state``) when it is given."""
     flat = _flatten(variables)
     state: dict[str, torch.Tensor] = {}
-    if _is_zoo(flat):
+    tops = _tops(flat)
+    classifier = bool(tops & set(_CLASSIFIER_TOPS))
+    if classifier or tops & set(_ZOO_TOPS):
         for key, arr in flat.items():
             collection, _, path = key.partition("/")
             if collection not in ("params", "batch_stats"):
                 raise KeyError(f"no mapping for flax collection of {key!r}")
-            name, t = _zoo_leaf(path, arr)
+            name, t = _zoo_leaf(path, arr, classifier)
             if name in state:
                 raise ValueError(f"two flax leaves map to {name}")
             state[name] = t

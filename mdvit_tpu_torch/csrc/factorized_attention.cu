@@ -12,9 +12,9 @@
 // walks one batch element's N tokens in one grid step, with its whole (N, C)
 // slab in VMEM. On Hopper blocks run in parallel, in no order, and a block
 // has at most 227 KB of shared memory (one fp32 (4096, 64) slab is 1 MiB).
-// So the tokens of a head are cut into S chunks of R rows, R = 256, 128, 64,
-// 32 for ch = 8, 16, 40, 64 (about 2048 values of an input; the forward
-// takes 64 at ch 64; the wrappers size the workspace by
+// So the tokens of a head are cut into S chunks of R rows, about 2048 to
+// 2560 values of an input (AttnChunk::kRows; the forward takes twice the
+// rows at ch 64; the wrappers size the workspace by
 // mdvit_factorized_attention_workspace, so the rows live here alone), and
 // each direction is two launches, with no atomics:
 //
@@ -58,6 +58,19 @@
 //     B = 16 at 64x64 and 32x32, but 8% onto 16x16 at B = 16, whose partials
 //     fill the card in one wave; releasing the apply only after the
 //     partials' writes lost most of the gain).
+// Head widths: every ch from 1 to 64. MDViT's four (8, 16, 40, 64) have
+// instances of their own, with ch a compile-time constant. Any other ch runs
+// in the instance of the next width bucket CH >= ch (8, 12, ..., 40, 48, 64:
+// dispatch_ch), with ch passed at run time: a chunk is staged CH columns
+// wide, the columns past ch as zeros, and only the first ch columns of an
+// output are stored. That is exact: a zero q or g column adds nothing to
+// q T, g T^T or q^T g, a zero v column makes the padded columns of T zero,
+// and the padded rows of T and dT (a zero k column's softmax is 1 / N) meet
+// only zero columns of q or g. A head starts at channel h * ch, which is
+// 4-aligned only when ch is, so the padded instances store 4 values at once
+// only then, and one at a time otherwise (CoaT's ch 19, 27; MPViT's 22, 27,
+// 46). CoaT's N = H * W + 1 tokens (a cls row) are a ragged last chunk like
+// any other N.
 // The products stay on CUDA-core FMAs: TF32 mma would break fp32 parity with
 // the reference, and bf16 mma would round exp(k - m) and T, which the plain
 // version does not. Chunks of half the rows at ch 8 and 16 measured slower in
@@ -70,14 +83,25 @@
 namespace mdvit {
 namespace {
 
-// The token chunks of one head; kGrad: the backward's.
+// The token chunks of one head, staged CH columns wide (CH: a width bucket,
+// a multiple of 4 from 8 to 64); kGrad: the backward's.
 template <int CH, bool kGrad>
 struct AttnChunk {
-  // token rows of a chunk. The forward stages two inputs, not four, so at ch
-  // 64 it takes twice the backward's rows: at 8x8 one chunk a head, which on
-  // an H100 took A 17 -> 14 us a call at B = 16; twice the rows at ch 40 ran
-  // slower at B = 1 (half the partials blocks) and spilled in bf16
-  static constexpr int kRows = CH == 8 ? 256 : CH == 16 ? 128 : CH == 40 ? 64 : kGrad ? 32 : 64;
+  // token rows of a chunk: 2048 to 2560 values of an input, and enough that
+  // the partials' per-row-group sums fit the staging buffer (kHolders below).
+  // The forward stages two inputs, not four, so at ch 64 it takes twice the
+  // backward's rows: at 8x8 one chunk a head, which on an H100 took A 17 ->
+  // 14 us a call at B = 16; twice the rows at ch 40 ran slower at B = 1 (half
+  // the partials blocks) and spilled in bf16
+  static constexpr int kRows = CH == 8    ? 256
+                               : CH == 12 ? 192
+                               : CH <= 20 ? 128
+                               : CH == 24 ? 96
+                               : CH == 28 ? 80
+                               : CH <= 40 ? 64
+                               : CH == 48 ? 48
+                               : kGrad    ? 32
+                                          : 64;
   static constexpr int kEl = kRows * CH;
   // ch x ch sums of a chunk: T_s, and D_s backward
   static constexpr int kSums = kGrad ? 2 : 1;
@@ -125,14 +149,30 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&o)[4]) {
   *reinterpret_cast<uint2*>(p) = u;
 }
 
+// Columns c0..c0+3 of an output row at p: 4 at once, or, in a padded
+// instance (kPad), the first `left` of them one at a time unless all 4 lie
+// within ch and the row's head is 4-aligned (`aligned`: ch % 4 == 0).
+template <bool kPad, typename T>
+__device__ __forceinline__ void store_cols(T* p, const float (&o)[4], int left, bool aligned) {
+  if (!kPad || (aligned && left >= 4)) {
+    store4(p, o);
+    return;
+  }
+#pragma unroll
+  for (int y = 0; y < 4; ++y)
+    if (y < left) p[y] = from_f<T>(o[y]);
+}
+
 // The body of launch 1 of both directions: one block per (b, h, chunk).
 // Workspace layout: AttnChunk<CH, kGrad>::kPartial floats per (b, h, chunk),
 // the chunks of a (b, h) consecutive. The forward stages k and v only (q and
-// g are not read); the backward stages q and g as well and adds D_s.
-template <typename T, int CH, bool kGrad>
+// g are not read); the backward stages q and g as well and adds D_s. kPad:
+// the head is ch_arg <= CH channels wide, and columns past it stage as zeros;
+// else it is CH wide.
+template <typename T, int CH, bool kGrad, bool kPad>
 __device__ __forceinline__ void attention_partials(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ g, float* __restrict__ ws, int n_tok, int heads,
+    const T* __restrict__ g, float* __restrict__ ws, int n_tok, int heads, int ch_arg,
     int chunks, long long batch_stride, long long row_stride,
     long long g_batch_stride, long long g_row_stride) {
   using P = AttnChunk<CH, kGrad>;
@@ -141,11 +181,16 @@ __device__ __forceinline__ void attention_partials(
   constexpr int kTilesPerRow = CH / 4;
   constexpr int kTiles = kTilesPerRow * kTilesPerRow;  // 4x4 tiles of a ch x ch sum
   constexpr int kGroups = kTiles >= kPartThreads ? 1 : kPartThreads / kTiles;
-  // per-thread sums left after the warp shuffles: one per warp while a warp
-  // holds several row groups of each tile (ch 8, 16), else one per row group
-  constexpr int kHolders = kTiles < 32 ? kPartThreads / 32 : kGroups;
+  // while a warp holds several row groups of each tile (kTiles a power of 2
+  // below 32: ch 8, 16) warp shuffles add them and one sum per warp is left,
+  // else one per row group
+  constexpr bool kShuffle = kTiles < 32 && (kTiles & (kTiles - 1)) == 0;
+  constexpr int kHolders = kShuffle ? kPartThreads / 32 : kGroups;
   constexpr int kColGroups = kPartThreads / CH;  // row groups of the column statistics
-  static_assert(kEl % kPartThreads == 0, "whole staging rounds");
+  // staging rounds; the last one partial where kEl is not a multiple of the
+  // block (CH 28): its elements past kEl lie in rows >= kRows >= rows, which
+  // the row test below skips
+  constexpr int kStage = (kEl + kPartThreads - 1) / kPartThreads;
   static_assert(kHolders * kSums * CH * CH <= 2 * kSums * kEl,
                 "holders' sums fit the staging buffer");
 
@@ -166,18 +211,18 @@ __device__ __forceinline__ void attention_partials(
   const int h = bh % heads;
   const int n0 = (blockIdx.x % chunks) * P::kRows;
   const int rows = min(P::kRows, n_tok - n0);
-  const long long in_off = b * batch_stride + n0 * row_stride + h * CH;
+  const int ch = kPad ? ch_arg : CH;
+  const long long in_off = b * batch_stride + n0 * row_stride + h * ch;
   k += in_off;
   v += in_off;
   if constexpr (kGrad) {
     q += in_off;
-    g += b * g_batch_stride + n0 * g_row_stride + h * CH;
+    g += b * g_batch_stride + n0 * g_row_stride + h * ch;
   }
 
   // ---- stage the chunk in fp32, rows in the order of memory: every load of
   // the thread is issued before the first store to shared memory
   {
-    constexpr int kStage = kEl / kPartThreads;
     float kr[kStage], vr[kStage], qr[kStage], gr[kStage];
 #pragma unroll
     for (int u = 0; u < kStage; ++u) {
@@ -185,12 +230,16 @@ __device__ __forceinline__ void attention_partials(
       const int r = i / CH;
       const int c = i % CH;
       if (r < rows) {
-        const long long o = r * row_stride + c;
-        kr[u] = to_f(k[o]);
-        vr[u] = to_f(v[o]);
-        if constexpr (kGrad) {
-          qr[u] = to_f(q[o]);
-          gr[u] = to_f(g[r * g_row_stride + c]);
+        if (!kPad || c < ch) {
+          const long long o = r * row_stride + c;
+          kr[u] = to_f(k[o]);
+          vr[u] = to_f(v[o]);
+          if constexpr (kGrad) {
+            qr[u] = to_f(q[o]);
+            gr[u] = to_f(g[r * g_row_stride + c]);
+          }
+        } else {
+          kr[u] = vr[u] = qr[u] = gr[u] = 0.f;
         }
       }
     }
@@ -257,7 +306,7 @@ __device__ __forceinline__ void attention_partials(
       if constexpr (kGrad) outer4(ad, ld4(s_q + r * CH + i0), ld4(s_g + r * CH + j0));
     }
   }
-  if constexpr (kTiles < 32) {
+  if constexpr (kShuffle) {
     // lanes tile, tile + kTiles, ... of a warp hold the same tile: add them
 #pragma unroll
     for (int off = kTiles; off < 32; off <<= 1)
@@ -270,8 +319,8 @@ __device__ __forceinline__ void attention_partials(
         }
   }
   __syncthreads();  // the staged chunk is read; its buffer takes the holders' sums
-  const int holder = kTiles < 32 ? tid / 32 : grp;
-  const bool holds = kTiles < 32 ? (tid % 32) < kTiles : grp < kGroups;
+  const int holder = kShuffle ? tid / 32 : grp;
+  const bool holds = kShuffle ? (tid % 32) < kTiles : grp < kGroups;
   if (holds) {
     float* st = s_buf + holder * kSums * CH * CH;
 #pragma unroll
@@ -292,22 +341,23 @@ __device__ __forceinline__ void attention_partials(
 
 // The partials kernels of the forward and the backward, each with a name of
 // its own for the profiler.
-template <typename T, int CH>
+template <typename T, int CH, bool kPad>
 __global__ void __launch_bounds__(kPartThreads) factorized_attention_fwd_partials_kernel(
     const T* __restrict__ k, const T* __restrict__ v, float* __restrict__ ws, int n_tok,
-    int heads, int chunks, long long batch_stride, long long row_stride) {
-  attention_partials<T, CH, false>(nullptr, k, v, nullptr, ws, n_tok, heads, chunks,
-                                   batch_stride, row_stride, 0, 0);
+    int heads, int ch, int chunks, long long batch_stride, long long row_stride) {
+  attention_partials<T, CH, false, kPad>(nullptr, k, v, nullptr, ws, n_tok, heads, ch,
+                                         chunks, batch_stride, row_stride, 0, 0);
 }
 
-template <typename T, int CH>
+template <typename T, int CH, bool kPad>
 __global__ void __launch_bounds__(kPartThreads) factorized_attention_bwd_partials_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ g, float* __restrict__ ws, int n_tok, int heads,
+    const T* __restrict__ g, float* __restrict__ ws, int n_tok, int heads, int ch,
     int chunks, long long batch_stride, long long row_stride,
     long long g_batch_stride, long long g_row_stride) {
-  attention_partials<T, CH, true>(q, k, v, g, ws, n_tok, heads, chunks, batch_stride,
-                                  row_stride, g_batch_stride, g_row_stride);
+  attention_partials<T, CH, true, kPad>(q, k, v, g, ws, n_tok, heads, ch, chunks,
+                                        batch_stride, row_stride, g_batch_stride,
+                                        g_row_stride);
 }
 
 // The pairs of a ch x ch sum that each of kThreads threads folds.
@@ -404,12 +454,12 @@ __device__ __forceinline__ void fold_chunks(
 }
 
 // Forward launch 2: out = scale * q T for one chunk of one (b, h).
-template <typename T, int CH>
+template <typename T, int CH, bool kPad>
 __global__ void __launch_bounds__(AttnChunk<CH, false>::kApplyThreads)
     factorized_attention_fwd_apply_kernel(const T* __restrict__ q,
                                           const float* __restrict__ ws,
                                           T* __restrict__ out, int n_tok, int heads,
-                                          int chunks, long long batch_stride,
+                                          int ch_arg, int chunks, long long batch_stride,
                                           long long row_stride, float scale) {
   using P = AttnChunk<CH, false>;
   using F = Fold<CH, P::kApplyThreads>;
@@ -428,7 +478,8 @@ __global__ void __launch_bounds__(AttnChunk<CH, false>::kApplyThreads)
   const int h = bh % heads;
   const int n0 = blockIdx.y * P::kRows;
   const int rows = min(P::kRows, n_tok - n0);
-  q += b * batch_stride + n0 * row_stride + h * CH;
+  const int ch = kPad ? ch_arg : CH;
+  q += b * batch_stride + n0 * row_stride + h * ch;
 
   // ---- stage the chunk of q, transposed: every load of the thread starts
   // before the first store to shared memory
@@ -439,7 +490,8 @@ __global__ void __launch_bounds__(AttnChunk<CH, false>::kApplyThreads)
     for (int u = 0; u < kStage; ++u) {
       const int i = tid + u * kThreads;
       const int r = i / CH;
-      if (r < rows) qr[u] = to_f(q[r * row_stride + i % CH]);
+      const int c = i % CH;
+      if (r < rows) qr[u] = (!kPad || c < ch) ? to_f(q[r * row_stride + c]) : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < kStage; ++u) {
@@ -472,7 +524,8 @@ __global__ void __launch_bounds__(AttnChunk<CH, false>::kApplyThreads)
 #pragma unroll 8
   for (int i = 0; i < CH; ++i)
     outer4(acc, ld4(s_q + i * kPitch + r0), ld4(s_t + i * kTPitch + c0));
-  const int c_all = heads * CH;
+  const int c_all = heads * ch;
+  const bool aligned = ch % 4 == 0;
 #pragma unroll
   for (int x = 0; x < 4; ++x) {
     const int r = r0 + x;
@@ -480,17 +533,18 @@ __global__ void __launch_bounds__(AttnChunk<CH, false>::kApplyThreads)
       float o[4];
 #pragma unroll
       for (int y = 0; y < 4; ++y) o[y] = acc[x][y] * scale;
-      store4(out + (static_cast<long long>(b) * n_tok + n0 + r) * c_all + h * CH + c0, o);
+      store_cols<kPad>(out + (static_cast<long long>(b) * n_tok + n0 + r) * c_all + h * ch + c0,
+                       o, ch - c0, aligned);
     }
   }
 }
 
 // Backward launch 2: dq, dk, dv for one chunk of one (b, h).
-template <typename T, int CH>
+template <typename T, int CH, bool kPad>
 __global__ void __launch_bounds__(AttnChunk<CH, true>::kApplyThreads) factorized_attention_bwd_apply_kernel(
     const T* __restrict__ k, const T* __restrict__ v, const T* __restrict__ g,
     const float* __restrict__ ws, T* __restrict__ dq, T* __restrict__ dk,
-    T* __restrict__ dv, int n_tok, int heads, int chunks, long long batch_stride,
+    T* __restrict__ dv, int n_tok, int heads, int ch_arg, int chunks, long long batch_stride,
     long long row_stride, long long g_batch_stride, long long g_row_stride,
     float scale) {
   using P = AttnChunk<CH, true>;
@@ -516,10 +570,11 @@ __global__ void __launch_bounds__(AttnChunk<CH, true>::kApplyThreads) factorized
   const int h = bh % heads;
   const int n0 = blockIdx.y * P::kRows;
   const int rows = min(P::kRows, n_tok - n0);
-  const long long in_off = b * batch_stride + n0 * row_stride + h * CH;
+  const int ch = kPad ? ch_arg : CH;
+  const long long in_off = b * batch_stride + n0 * row_stride + h * ch;
   k += in_off;
   v += in_off;
-  g += b * g_batch_stride + n0 * g_row_stride + h * CH;
+  g += b * g_batch_stride + n0 * g_row_stride + h * ch;
 
   // ---- stage the chunk of k, v, g, transposed: every load of the thread is
   // issued before the first store to shared memory
@@ -532,10 +587,14 @@ __global__ void __launch_bounds__(AttnChunk<CH, true>::kApplyThreads) factorized
       const int r = i / CH;
       const int c = i % CH;
       if (r < rows) {
-        const long long o = r * row_stride + c;
-        kr[u] = to_f(k[o]);
-        vr[u] = to_f(v[o]);
-        gr[u] = to_f(g[r * g_row_stride + c]);
+        if (!kPad || c < ch) {
+          const long long o = r * row_stride + c;
+          kr[u] = to_f(k[o]);
+          vr[u] = to_f(v[o]);
+          gr[u] = to_f(g[r * g_row_stride + c]);
+        } else {
+          kr[u] = vr[u] = gr[u] = 0.f;
+        }
       }
     }
 #pragma unroll
@@ -600,7 +659,8 @@ __global__ void __launch_bounds__(AttnChunk<CH, true>::kApplyThreads) factorized
     inner[2] = fmaf(de.z, tt.z, inner[2]);
     inner[3] = fmaf(de.w, tt.w, inner[3]);
   }
-  const int c_all = heads * CH;
+  const int c_all = heads * ch;
+  const bool aligned = ch % 4 == 0;
 #pragma unroll
   for (int x = 0; x < 4; ++x) {
     const int r = r0 + x;
@@ -613,40 +673,57 @@ __global__ void __launch_bounds__(AttnChunk<CH, true>::kApplyThreads) factorized
         ov[y] = av[x][y];
         ok[y] = s_k[c * kPitch + r] * (ak[x][y] - inner[y]);
       }
-      const long long o = (static_cast<long long>(b) * n_tok + n0 + r) * c_all + h * CH + c0;
-      store4(dq + o, oq);
-      store4(dv + o, ov);
-      store4(dk + o, ok);
+      const long long o = (static_cast<long long>(b) * n_tok + n0 + r) * c_all + h * ch + c0;
+      store_cols<kPad>(dq + o, oq, ch - c0, aligned);
+      store_cols<kPad>(dv + o, ov, ch - c0, aligned);
+      store_cols<kPad>(dk + o, ok, ch - c0, aligned);
     }
   }
 }
 
-// Call f(ch) with ch as a compile-time constant, for the head widths the
-// kernels are built for.
+// Call f(CH, kPad) with compile-time constants for head width ch: MDViT's
+// widths (8, 16, 40, 64) as themselves (kPad false), any other ch in 1..64 in
+// the next width bucket CH >= ch (kPad true). The launches and the workspace
+// size both dispatch here, so they agree on the chunk rows.
 template <typename F>
 int dispatch_ch(int ch, F&& f) {
   using std::integral_constant;
+  using Exact = std::false_type;
+  using Pad = std::true_type;
   switch (ch) {
-    case 8: return f(integral_constant<int, 8>{});
-    case 16: return f(integral_constant<int, 16>{});
-    case 40: return f(integral_constant<int, 40>{});
-    case 64: return f(integral_constant<int, 64>{});
-    default: return kUnsupported;
+    case 8: return f(integral_constant<int, 8>{}, Exact{});
+    case 16: return f(integral_constant<int, 16>{}, Exact{});
+    case 40: return f(integral_constant<int, 40>{}, Exact{});
+    case 64: return f(integral_constant<int, 64>{}, Exact{});
+    default: break;
   }
+  if (ch < 1 || ch > 64) return kUnsupported;
+  if (ch <= 8) return f(integral_constant<int, 8>{}, Pad{});
+  if (ch <= 12) return f(integral_constant<int, 12>{}, Pad{});
+  if (ch <= 16) return f(integral_constant<int, 16>{}, Pad{});
+  if (ch <= 20) return f(integral_constant<int, 20>{}, Pad{});
+  if (ch <= 24) return f(integral_constant<int, 24>{}, Pad{});
+  if (ch <= 28) return f(integral_constant<int, 28>{}, Pad{});
+  if (ch <= 32) return f(integral_constant<int, 32>{}, Pad{});
+  if (ch <= 36) return f(integral_constant<int, 36>{}, Pad{});
+  if (ch <= 40) return f(integral_constant<int, 40>{}, Pad{});
+  if (ch <= 48) return f(integral_constant<int, 48>{}, Pad{});
+  return f(integral_constant<int, 64>{}, Pad{});
 }
 
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, void* out, void* ws,
                int batch, int n_tok, int heads, int ch, long long batch_stride,
                long long row_stride, float scale, cudaStream_t stream) {
-  return dispatch_ch(ch, [&](auto c) -> int {
+  return dispatch_ch(ch, [&](auto c, auto pad) -> int {
     constexpr int CH = decltype(c)::value;
+    constexpr bool kPad = decltype(pad)::value;
     using P = AttnChunk<CH, false>;
     const int chunks = (n_tok + P::kRows - 1) / P::kRows;
-    factorized_attention_fwd_partials_kernel<T, CH>
+    factorized_attention_fwd_partials_kernel<T, CH, kPad>
         <<<batch * heads * chunks, kPartThreads, 0, stream>>>(
             static_cast<const T*>(k), static_cast<const T*>(v), static_cast<float*>(ws),
-            n_tok, heads, chunks, batch_stride, row_stride);
+            n_tok, heads, ch, chunks, batch_stride, row_stride);
     const int err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
     // programmatic dependent launch: the apply's blocks may start while the
@@ -661,8 +738,8 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out, void* ws,
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     return static_cast<int>(cudaLaunchKernelEx(
-        &cfg, factorized_attention_fwd_apply_kernel<T, CH>, static_cast<const T*>(q),
-        static_cast<const float*>(ws), static_cast<T*>(out), n_tok, heads, chunks,
+        &cfg, factorized_attention_fwd_apply_kernel<T, CH, kPad>, static_cast<const T*>(q),
+        static_cast<const float*>(ws), static_cast<T*>(out), n_tok, heads, ch, chunks,
         batch_stride, row_stride, scale));
   });
 }
@@ -673,20 +750,21 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* g,
                int heads, int ch, long long batch_stride, long long row_stride,
                long long g_batch_stride, long long g_row_stride, float scale,
                cudaStream_t stream) {
-  return dispatch_ch(ch, [&](auto c) -> int {
+  return dispatch_ch(ch, [&](auto c, auto pad) -> int {
     constexpr int CH = decltype(c)::value;
+    constexpr bool kPad = decltype(pad)::value;
     using P = AttnChunk<CH, true>;
     const int chunks = (n_tok + P::kRows - 1) / P::kRows;
-    factorized_attention_bwd_partials_kernel<T, CH>
+    factorized_attention_bwd_partials_kernel<T, CH, kPad>
         <<<batch * heads * chunks, kPartThreads, 0, stream>>>(
             static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-            static_cast<const T*>(g), static_cast<float*>(ws), n_tok, heads, chunks,
+            static_cast<const T*>(g), static_cast<float*>(ws), n_tok, heads, ch, chunks,
             batch_stride, row_stride, g_batch_stride, g_row_stride);
     int err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
     constexpr int smem = (2 * CH * P::kTPitch + CH * CH + 3 * CH * P::kPitch + 2 * CH) *
                          static_cast<int>(sizeof(float));
-    auto apply = factorized_attention_bwd_apply_kernel<T, CH>;
+    auto apply = factorized_attention_bwd_apply_kernel<T, CH, kPad>;
     if (smem > 48 * 1024) {
       err = static_cast<int>(
           cudaFuncSetAttribute(apply, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
@@ -695,7 +773,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* g,
     apply<<<dim3(batch * heads, chunks), P::kApplyThreads, smem, stream>>>(
         static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(g),
         static_cast<const float*>(ws), static_cast<T*>(dq), static_cast<T*>(dk),
-        static_cast<T*>(dv), n_tok, heads, chunks, batch_stride, row_stride,
+        static_cast<T*>(dv), n_tok, heads, ch, chunks, batch_stride, row_stride,
         g_batch_stride, g_row_stride, scale);
     return static_cast<int>(cudaGetLastError());
   });
@@ -709,7 +787,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* g,
 // workspace of B * heads * mdvit_factorized_attention_workspace(N, ch, 0)
 // floats, every entry written by the partials launch before the apply launch
 // reads it. Two launches on the stream. Returns the cudaGetLastError() code
-// after the launches, or -1 for an unsupported dtype/ch.
+// after the launches, or -1 for an unsupported dtype or a ch outside 1..64.
 extern "C" int mdvit_factorized_attention_fwd(
     int dtype, const void* q, const void* k, const void* v, void* out, void* ws,
     int batch, int n_tok, int heads, int ch, long long batch_stride,
@@ -746,12 +824,13 @@ extern "C" int mdvit_factorized_attention_bwd(
   return mdvit::kUnsupported;
 }
 
-// Floats of the workspace of one (batch element, head) at n_tok tokens:
-// chunks * (2 ch + ch^2) for the forward (grad 0), chunks * (2 ch + 2 ch^2)
-// for the backward (grad 1), chunks = ceil(N / AttnChunk<ch, grad>::kRows).
-// The wrappers size their workspaces by it. -1 for an unsupported ch.
+// Floats of the workspace of one (batch element, head) at n_tok tokens, with
+// CH the width ch runs at (dispatch_ch): chunks * (2 CH + CH^2) for the
+// forward (grad 0), chunks * (2 CH + 2 CH^2) for the backward (grad 1),
+// chunks = ceil(N / AttnChunk<CH, grad>::kRows). The wrappers size their
+// workspaces by it. -1 for a ch outside 1..64.
 extern "C" int mdvit_factorized_attention_workspace(int n_tok, int ch, int grad) {
-  return mdvit::dispatch_ch(ch, [&](auto c) -> int {
+  return mdvit::dispatch_ch(ch, [&](auto c, auto) -> int {
     constexpr int CH = decltype(c)::value;
     using F = mdvit::AttnChunk<CH, false>;
     using B = mdvit::AttnChunk<CH, true>;

@@ -21,7 +21,7 @@ appear once in the ``state_dict``, under ``mhsa_stages.i.{cpe, crpe}``.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -161,19 +161,27 @@ class SerialBlock(nn.Module):
 
 
 class MHSAStage(nn.Module):
-    """Shared CPE and CRPE plus ``num_layers`` serial blocks, (B, N, C) → (B, N, C)."""
+    """Shared CPE and CRPE plus ``num_layers`` serial blocks, (B, N, C) → (B, N, C).
+
+    Block i's stochastic depth is ``drop_path_list[i]`` when the list is
+    given (MPViT's linear schedule), else ``drop_path``."""
 
     def __init__(self, dim: int, num_layers: int, num_heads: int,
                  mlp_ratio: float, num_domains: int, drop: float = 0.0,
                  drop_path: float = 0.0, sup: bool = True, dsn: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 drop_path_list: Sequence[float] | None = None):
         super().__init__()
+        if drop_path_list is not None and len(drop_path_list) != num_layers:
+            raise ValueError(f"drop_path_list has {len(drop_path_list)} rates for "
+                             f"{num_layers} blocks")
+        rates = list(drop_path_list) if drop_path_list is not None else [drop_path] * num_layers
         self.cpe = ConvPosEnc(dim, dtype=dtype)
         self.crpe = ConvRelPosEnc(dim // num_heads, num_heads, dtype=dtype)
         self.mhca_blks = nn.ModuleList(
-            SerialBlock(dim, num_heads, mlp_ratio, num_domains, drop, drop_path,
+            SerialBlock(dim, num_heads, mlp_ratio, num_domains, drop, rate,
                         sup, dsn, dtype=dtype)
-            for _ in range(num_layers))
+            for rate in rates)
 
     def forward(self, x: torch.Tensor, size: Tuple[int, int],
                 domain_onehot: torch.Tensor | None, train: bool = False,

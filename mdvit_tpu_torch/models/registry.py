@@ -5,10 +5,11 @@ their registry names, with the JAX builders' arguments: the family
 (``base.py:239-274``, ``mdvit.py:231-251``) with dropout and stochastic
 depth 0.1 and the Sup gate when ``adapt_method`` names it; the segmentation
 comparators (``swin_unet.py``, ``swin_unetr.py``, ``utnet.py``,
-``transfuse.py``) and the Swin classifier with their own modules' defaults,
-whatever ``adapt_method`` says (``TransFuse_S_adapt`` always has the gate).
-``save_weights`` records the name, and ``load_weights`` rebuilds whatever it
-names.
+``transfuse.py``) and the classifiers (Swin, MPViT, CoaT and CoaT-Lite,
+``{"logits", "feat"}`` at 224² and 1000 classes) with their own modules'
+defaults, whatever ``adapt_method`` says (``TransFuse_S_adapt`` always has
+the gate). ``save_weights`` records the name, and ``load_weights`` rebuilds
+whatever it names.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch
 from torch import nn
 
 from mdvit_tpu_torch.device import resolve_device
+from mdvit_tpu_torch.models import coat, mpvit
 from mdvit_tpu_torch.models.base import BASE
 from mdvit_tpu_torch.models.mdvit import MDViT
 from mdvit_tpu_torch.models.swin_unet import SwinClassifier, SwinUnet
@@ -25,13 +27,6 @@ from mdvit_tpu_torch.models.swin_unetr import SwinUNETR
 from mdvit_tpu_torch.models.transfuse import TransFuse
 from mdvit_tpu_torch.models.utnet import UTNet
 from mdvit_tpu_torch.ops.initializers import init_weights_
-
-# the JAX package's other registered models, the classifiers that reach the
-# kernels at head widths they do not take yet: ROADMAP queue A item 4b
-UNPORTED = ("mpvit_tiny", "mpvit_xsmall", "mpvit_small", "mpvit_base", "coat_tiny",
-            "coat_mini", "coat_small", "coat_lite_tiny", "coat_lite_mini",
-            "coat_lite_small")
-
 
 def _sup(adapt_method: Any) -> str | None:
     return "Sup" if adapt_method and "Sup" in str(adapt_method) else None
@@ -83,14 +78,19 @@ BUILDERS: dict[str, Callable[..., nn.Module]] = {
     # img_size says (transfuse.py:473-485)
     "TransFuse_L_384": _zoo(TransFuse, sized=False, domains=True, img_size=(384, 512),
                             variant="L", sup=False),
+    # the MPViT and CoaT classifiers: MPViT's stochastic depth 0, CoaT has none
+    **{name: _zoo(mpvit.MPViT, sized=False, **cfg) for name, cfg in mpvit.CONFIGS.items()},
+    **{name: _zoo(coat.CoaT, sized=False, **cfg) for name, cfg in coat.CONFIGS.items()},
 }
+# the models whose output is {"logits", "feat"}, not a segmentation
+CLASSIFIERS = ("swin_tiny", *mpvit.CONFIGS, *coat.CONFIGS)
 # the family's dropout and stochastic depth (the reference trainers' 0.1);
 # the comparators keep their modules' own
 FAMILY_DROPS = {"drop_rate": 0.1, "drop_path_rate": 0.1}
 FAMILY = ("MDViT", "MDViT_DSN", "BASE", "BASE_DSN", "BASE_DASE", "BASE_USE")
 # the default adapt_method and img_size of each builder's JAX signature
 DEFAULT_ADAPT = {"MDViT": "Sup", "MDViT_DSN": "Sup", "TransFuse_S_adapt": "Sup"}
-DEFAULT_IMG = {"swin_tiny": 224}
+DEFAULT_IMG = {name: 224 for name in CLASSIFIERS}
 _BUILDER_DEFAULT = object()
 
 
@@ -101,7 +101,7 @@ def build_model(name: str, img_size: int | None = None, num_domains: int = 4,
                 **kw: Any) -> nn.Module:
     """The registry model ``name``, weights drawn from ``seed``, in eval mode
     on ``device`` (``cuda`` unless told otherwise). ``img_size`` defaults to
-    the JAX builder's (256; 224 for ``swin_tiny``). Dropout and stochastic
+    the JAX builder's (256; 224 for the classifiers). Dropout and stochastic
     depth default to the reference trainers' 0.1 for the family and to the
     modules' own for the comparators; they act in train mode only.
     ``adapt_method`` defaults to the JAX builder's (Sup for MDViT, none for
@@ -110,10 +110,6 @@ def build_model(name: str, img_size: int | None = None, num_domains: int = 4,
     ``embed_dim``, ``window``, ``base_chan``) and MDViT's ``decoder_name``;
     ``model.config`` records every argument, so ``load_weights`` can rebuild
     the model."""
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported: the MPViT and CoaT classifiers are "
-            "ROADMAP queue A item 4b")
     if name not in BUILDERS:
         raise KeyError(f"unknown model {name!r}; have {sorted(BUILDERS)}")
     if adapt_method is _BUILDER_DEFAULT:
@@ -145,6 +141,14 @@ def build_mdvit(img_size: int = 256, num_domains: int = 4,
                        drop_rate, drop_path_rate, **kw)
 
 
+def require_segmenter(name: str) -> None:
+    """Raise ``ValueError`` for a classifier: the training and eval paths
+    segment (JAX's trainer cannot train a classifier either)."""
+    if name in CLASSIFIERS:
+        raise ValueError(f"model {name!r} is a classifier (its output is logits and "
+                         "feat, no segmentation): the Trainer trains segmentation models")
+
+
 def save_weights(path: str, model: nn.Module) -> None:
     """Write ``{"model": name, "config", "state_dict"}`` with torch.save."""
     torch.save({"model": model.config["name"], "config": model.config,
@@ -162,7 +166,11 @@ def load_weights(path: str, device: str | torch.device | None = None,
         raise ValueError(f"{path}: not a weight file of a ported model "
                          f"({blob.get('model')!r})")
     cfg_dtype = getattr(torch, cfg.pop("dtype"))
-    model = build_model(name, dtype=dtype or cfg_dtype, device="cpu", **cfg)
-    model.load_state_dict(blob["state_dict"])
+    try:
+        model = build_model(name, dtype=dtype or cfg_dtype, device="cpu", **cfg)
+        model.load_state_dict(blob["state_dict"])
+    except (TypeError, RuntimeError) as err:  # a config or weights of another model
+        raise ValueError(f"{path}: the file's config and weights do not build "
+                         f"{name!r}: {err}") from err
     model.config["dtype"] = str(dtype or cfg_dtype).replace("torch.", "")
     return model.to(resolve_device(device)).eval()

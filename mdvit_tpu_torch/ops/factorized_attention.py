@@ -23,8 +23,10 @@ from torch import Tensor
 
 from mdvit_tpu_torch.ops import kernels
 
-# head widths the kernels are instantiated for: MDViT's four stages
-KERNEL_CH = (8, 16, 40, 64)
+# the widest head the kernels take: any ch from 1 to MAX_CH that divides C
+# runs (MDViT's 8, 16, 40, 64 in instances of their own, every other ch in
+# the next 4-multiple width bucket, its padded columns zero)
+MAX_CH = 64
 
 
 def _heads(t: torch.Tensor, ch: int) -> torch.Tensor:
@@ -67,9 +69,10 @@ def _check(q, k, v, ch):
     if q.dim() != 3 or not (q.shape == k.shape == v.shape):
         raise ValueError(f"factorized_attention: want equal (B, N, C) shapes, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if ch not in KERNEL_CH or q.shape[2] % ch:
+    if not 1 <= ch <= MAX_CH or q.shape[2] % ch:
         raise ValueError(f"factorized_attention: ch={ch} with C={q.shape[2]} "
-                         f"not supported (kernel has ch in {KERNEL_CH})")
+                         f"not supported (the kernels take 1 <= ch <= {MAX_CH} "
+                         "dividing C)")
     if any(t.stride(2) != 1 for t in (q, k, v)) or not (
             q.stride() == k.stride() == v.stride()):
         raise ValueError("factorized_attention: q, k, v need unit channel "

@@ -25,8 +25,8 @@ SwinUNETR, UTNet, TransFuse_S, TransFuse_S_adapt and TransFuse_L; a model
 whose name starts with MDViT trains with the MKD objective, TransFuse with
 its deep supervision, the others with the single one. ``pretrained_folder``
 grafts converted ImageNet backbones into a TransFuse
-(``train.pretrained``). The MPViT and CoaT classifiers raise
-``NotImplementedError`` naming their ROADMAP item.
+(``train.pretrained``). A classifier (Swin, MPViT, CoaT: no segmentation
+output) raises ``ValueError``, as JAX's trainer cannot train one either.
 """
 from __future__ import annotations
 
@@ -45,7 +45,7 @@ from mdvit_tpu_torch.data.loader import (DeviceDomainStore, EvalSplitStore,
                                          RoundRobinSampler, eval_batches,
                                          eval_index_batches)
 from mdvit_tpu_torch.device import resolve_device
-from mdvit_tpu_torch.models.registry import build_model
+from mdvit_tpu_torch.models.registry import build_model, require_segmenter
 from mdvit_tpu_torch.parallel.mesh import Mesh, local_device, make_mesh
 from mdvit_tpu_torch.train import checkpoints as ckpt
 from mdvit_tpu_torch.train.optim import build_optimizer, steplr
@@ -152,6 +152,7 @@ class Trainer:
         (``data_parallel_mesh(config)`` when None); a rank outside it may not
         build a Trainer."""
         check_supported(config)
+        require_segmenter(config.model)
         self.config = config
         self.exp_dir = exp_dir
         self.mesh = data_parallel_mesh(config) if mesh is None else mesh

@@ -77,11 +77,43 @@ def test_kernels_match_plain_on_card(c, ch, dtype):
 @pytest.mark.gpu
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     _need_card()
-    q = torch.randn(1, 16, 48, device="cuda")  # ch = 12 has no kernel
-    with pytest.raises(ValueError):
-        fa.factorized_attention(q, q, q, 12, 1.0)
+    q = torch.randn(1, 16, 144, device="cuda")
+    for ch in (72, 144, 0, 5):  # wider than 64, none, not dividing C
+        with pytest.raises(ValueError):
+            fa.factorized_attention(q, q, q, ch, 1.0)
+        with pytest.raises(ValueError):
+            torch.ops.mdvit.factorized_attention_bwd(q, q, q, q, ch, 1.0)
     with pytest.raises(TypeError):
         fa.factorized_attention(q.half(), q.half(), q.half(), 8, 1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_every_width_matches_plain_on_card(dtype):
+    """A and A′ at every head width 1..64, 3 heads, N = 37 (a ragged chunk),
+    q, k, v slices of one (B, N, 3C) tensor: against the plain versions,
+    one counted call each."""
+    _need_card()
+    for ch in range(1, fa.MAX_CH + 1):
+        c = 3 * ch
+        rs = np.random.RandomState(ch)
+        qkv = torch.from_numpy(rs.standard_normal((2, 37, 3 * c)).astype(np.float32))
+        qkv = qkv.to("cuda", dtype)
+        q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+        g = torch.from_numpy(rs.standard_normal((2, 37, c)).astype(np.float32)).to("cuda", dtype)
+        kernels.reset_launches()
+        with torch.no_grad():
+            got = fa.factorized_attention(q, k, v, ch, ch ** -0.5)
+        grads = torch.ops.mdvit.factorized_attention_bwd(q, k, v, g, ch, ch ** -0.5)
+        torch.cuda.synchronize()
+        assert _counts(("factorized_attention", "factorized_attention_bwd")) == {
+            "factorized_attention": 1, "factorized_attention_bwd": 1}, ch
+        want = fa.factorized_attention_ref(q, k, v, ch, ch ** -0.5)
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= ATTN_BWD_REL_TOL[dtype] * want.float().abs().max().item(), (ch, err)
+        for a, e in zip(grads, fa.factorized_attention_bwd_ref(q, k, v, g, ch, ch ** -0.5)):
+            err = (a.float() - e.float()).abs().max().item()
+            assert err <= ATTN_BWD_REL_TOL[dtype] * e.float().abs().max().item(), (ch, err)
 
 
 @pytest.mark.gpu
@@ -200,23 +232,41 @@ def test_fp32_serving_forward_runs_without_tf32_on_card():
         torch.set_float32_matmul_precision(saved[1])
 
 
-# token rows of a chunk of the factorized-attention kernels by head width, as
-# ``AttnChunk<CH, kGrad>::kRows`` in factorized_attention.cu cuts them: the
+# the width buckets of the factorized-attention kernels (``dispatch_ch`` in
+# factorized_attention.cu): a head of width ch runs in the first bucket
+# CH >= ch, its columns past ch staged as zeros (MDViT's 8, 16, 40 and 64 in
+# instances of their own, with the same chunk rows)
+ATTN_BUCKETS = (8, 12, 16, 20, 24, 28, 32, 36, 40, 48, 64)
+
+
+def attn_bucket(ch: int) -> int:
+    return next(b for b in ATTN_BUCKETS if b >= ch)
+
+
+# token rows of a chunk of the factorized-attention kernels by width bucket,
+# as ``AttnChunk<CH, kGrad>::kRows`` in factorized_attention.cu cuts them: the
 # backward's, and the forward's (it stages two inputs, not four, and takes
 # twice the rows at ch 64). The library sizes the workspace itself
 # (``mdvit_factorized_attention_workspace``); these set the chunks of the
 # plain-torch emulations in the CPU tests, and
 # ``test_attention_workspace_matches_chunk_rows_on_card`` holds them to it.
-ATTN_CHUNK_ROWS = {8: 256, 16: 128, 40: 64, 64: 32}
-ATTN_FWD_CHUNK_ROWS = {8: 256, 16: 128, 40: 64, 64: 64}
+ATTN_CHUNK_ROWS = {8: 256, 12: 192, 16: 128, 20: 128, 24: 96, 28: 80, 32: 64, 36: 64,
+                   40: 64, 48: 48, 64: 32}
+ATTN_FWD_CHUNK_ROWS = {**ATTN_CHUNK_ROWS, 64: 64}
 # The factorized-attention kernels' chunked split, (B, N, C, ch, k scale): N
 # ragged against the chunk rows (``ATTN_CHUNK_ROWS``, ``ATTN_FWD_CHUNK_ROWS``),
 # k ×20 so that the column maxima fall in different
 # chunks and one in the last, ragged chunk; and N = 4096 at ch 8 with B = 1
-# (16 chunks)
+# (16 chunks); then the classifiers' head widths that MDViT does not send, at
+# their N = H·W + 1 (CoaT's cls row) and N = H·W (MPViT) at 224²
 ATTN_SPLIT_CASES = [(2, 257, 64, 8, 20.0), (2, 1000, 64, 8, 20.0), (2, 33, 128, 16, 20.0),
                     (2, 257, 128, 16, 20.0), (2, 1000, 320, 40, 20.0), (2, 33, 512, 64, 20.0),
-                    (2, 1000, 512, 64, 20.0), (1, 4096, 64, 8, 1.0), (1, 4096, 64, 8, 20.0)]
+                    (2, 1000, 512, 64, 20.0), (1, 4096, 64, 8, 1.0), (1, 4096, 64, 8, 20.0),
+                    (2, 785, 96, 12, 20.0), (1, 3137, 152, 19, 20.0), (2, 197, 152, 19, 20.0),
+                    (2, 196, 176, 22, 20.0), (2, 197, 192, 24, 20.0), (2, 785, 216, 27, 20.0),
+                    (2, 50, 216, 27, 20.0), (2, 785, 224, 28, 20.0), (2, 197, 256, 32, 20.0),
+                    (2, 50, 288, 36, 20.0), (2, 197, 368, 46, 20.0), (2, 49, 480, 60, 20.0),
+                    (2, 50, 320, 40, 20.0)]
 # relative to each output's largest value. fp32: the kernel sums a column over
 # 64-row groups, then over chunks in order, where cuBLAS's einsum blocks the
 # 4096 tokens another way; both are blocked sums whose rounding grows with the
@@ -290,18 +340,21 @@ def test_attention_fwd_split_matches_plain_on_card(case, dtype):
 
 @pytest.mark.gpu
 def test_attention_workspace_matches_chunk_rows_on_card():
-    """The library's workspace floats per (batch element, head): ⌈N / rows⌉
-    chunks of 2·ch + ch² (forward) or 2·ch + 2·ch² (backward), with the rows
-    of ``ATTN_FWD_CHUNK_ROWS`` and ``ATTN_CHUNK_ROWS``; -1 for a head width
-    the kernels are not built for."""
+    """The library's workspace floats per (batch element, head) at every head
+    width 1..64: ⌈N / rows⌉ chunks of 2·CH + CH² (forward) or 2·CH + 2·CH²
+    (backward), CH the width's bucket, with the rows of
+    ``ATTN_FWD_CHUNK_ROWS`` and ``ATTN_CHUNK_ROWS``; -1 for a head width
+    outside 1..64."""
     _need_card()
     lib = kernels.library("factorized_attention")
     for grad, table in ((0, ATTN_FWD_CHUNK_ROWS), (1, ATTN_CHUNK_ROWS)):
-        for ch, rows in table.items():
-            for n in (1, 33, 64, 256, 257, 1000, 4096):
-                want = -(-n // rows) * (2 * ch + (1 + grad) * ch * ch)
-                assert lib.mdvit_factorized_attention_workspace(n, ch, grad) == want
-        assert lib.mdvit_factorized_attention_workspace(64, 12, grad) == -1
+        for ch in range(1, fa.MAX_CH + 1):
+            wide = attn_bucket(ch)
+            for n in (1, 33, 50, 64, 256, 257, 785, 1000, 3137, 4096):
+                want = -(-n // table[wide]) * (2 * wide + (1 + grad) * wide * wide)
+                assert lib.mdvit_factorized_attention_workspace(n, ch, grad) == want, (ch, n)
+        for ch in (0, 65, 72):
+            assert lib.mdvit_factorized_attention_workspace(64, ch, grad) == -1
 
 
 # dw, db of CPE and CRPE: fp32 sums over B·H·W (up to 9216 products here) in
@@ -378,6 +431,58 @@ def test_cpe_tiled_kernels_match_plain_on_card(shape, dtype):
             assert err <= CRPE_WEIGHT_REL_TOL * e.abs().max().item(), err
         assert all(torch.equal(a, e) for a, e in zip(got, again))
     assert _counts(("cpe_conv", "cpe_conv_bwd")) == {"cpe_conv": 2, "cpe_conv_bwd": 4}
+
+
+# CoaT's CPE and CRPE inputs: the image rows of (B, H·W + 1, ·) tokens, so
+# views whose batch stride is (H·W + 1) rows and whose first pixel is one row
+# in; (B, H, W, C) at the classifiers' widths and 224²'s 56², 28², 14², 7²
+COAT_VIEW_SHAPES = [(2, 7, 7, 152), (2, 14, 14, 216), (2, 28, 28, 152), (2, 56, 56, 64),
+                    (2, 7, 7, 320), (2, 14, 14, 96), (2, 7, 7, 480)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", COAT_VIEW_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_dwconv_on_coat_views_on_card(shape, dtype):
+    """B, B′, C and C′ on CoaT's views: x = tokens[:, 1:] of (B, H·W + 1, C)
+    tokens, q and v = qkv[:, 1:] slices of a (B, H·W + 1, 3C) projection,
+    unflattened to (B, H, W, C); against the plain versions, dw and db the
+    same bits on a second call."""
+    _need_card()
+    bsz, h, wd, c = shape
+    rs = np.random.RandomState(sum(shape) + 2)
+
+    def rand(*s, std=1.0):
+        a = (std * rs.standard_normal(s)).astype(np.float32)
+        return torch.from_numpy(a).to("cuda", dtype)
+
+    x = rand(bsz, h * wd + 1, c)[:, 1:].unflatten(1, (h, wd))
+    qkv = rand(bsz, h * wd + 1, 3 * c)[:, 1:].unflatten(1, (h, wd))
+    q, v = qkv[..., :c], qkv[..., 2 * c:]
+    assert not (x.is_contiguous() or q.is_contiguous())
+    w3, w7 = rand(3, 3, c, std=(2 / 9) ** 0.5), rand(7, 7, c, std=(2 / 49) ** 0.5)
+    b, g = rand(c, std=0.1), rand(bsz, h, wd, c)
+    kernels.reset_launches()
+    torch.testing.assert_close(dwconv.cpe_conv(x, w3, b).float(),
+                               dwconv.cpe_conv_ref(x, w3, b).float(), **GPU_TOL[dtype])
+    torch.testing.assert_close(dwconv.crpe_conv(q, v, w7, b).float(),
+                               dwconv.crpe_conv_ref(q, v, w7, b).float(), **GPU_TOL[dtype])
+    for run, plain, w, n_image in (
+            (lambda: torch.ops.mdvit.cpe_conv_bwd(x, w3, g),
+             lambda: dwconv.cpe_conv_bwd_ref(x, w3, g), w3, 1),
+            (lambda: torch.ops.mdvit.crpe_conv_bwd(q, v, w7, b, g),
+             lambda: dwconv.crpe_conv_bwd_ref(q, v, w7, b, g), w7, 2)):
+        got, again = _weights_apart(run(), w), _weights_apart(run(), w)
+        torch.cuda.synchronize()
+        want = plain()
+        for a, e in zip(got[:n_image], want[:n_image]):
+            torch.testing.assert_close(a.float(), e.float(), **GPU_TOL[dtype])
+        for a, e in zip(got[n_image:], want[n_image:]):
+            err = (a - e).abs().max().item()
+            assert err <= CRPE_WEIGHT_REL_TOL * e.abs().max().item(), err
+        assert all(torch.equal(a, e) for a, e in zip(got, again))
+    assert _counts(FORWARD[1:] + BACKWARD[1:]) == {
+        "cpe_conv": 1, "crpe_conv": 1, "cpe_conv_bwd": 2, "crpe_conv_bwd": 2}
 
 
 @pytest.mark.gpu

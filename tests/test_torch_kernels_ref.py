@@ -14,6 +14,7 @@ import os
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,7 +26,7 @@ from mdvit_tpu_torch.device import no_tf32
 from mdvit_tpu_torch.models.blocks import ConvRelPosEnc
 from mdvit_tpu_torch.ops import dwconv, kernels
 from mdvit_tpu_torch.ops import factorized_attention as fa
-from tests.test_torch_kernels_gpu import ATTN_FWD_CHUNK_ROWS
+from tests.test_torch_kernels_gpu import ATTN_FWD_CHUNK_ROWS, attn_bucket
 from tests.test_torch_train_kernels import CHUNKED_CASES, _chunk_partials, _fold_chunks
 
 torch.set_num_threads(2)
@@ -55,13 +56,36 @@ def test_factorized_attention_ref_matches_xla(c, ch):
                                want, **TOL)
 
 
+# (C, ch, N): the classifiers' head widths off the 4-aligned widths (MPViT's
+# 22, 27, 46; CoaT's 19, 27), at N = H·W + 1 (CoaT's cls row) and N = H·W
+CLASSIFIER_C_CH_N = [(152, 19, 50), (152, 19, 197), (176, 22, 196), (216, 27, 50),
+                     (216, 27, 785), (368, 46, 197)]
+
+
+@pytest.mark.parametrize("c,ch,n", CLASSIFIER_C_CH_N, ids=lambda x: str(x))
+def test_factorized_attention_ref_matches_xla_at_classifier_widths(c, ch, n):
+    """The plain forward and backward against the XLA twin and its vjp, with
+    q, k, v slices of one (B, N, 3C) tensor."""
+    rs = np.random.RandomState(c + n)
+    q, k, v = _qkv(rs, 2, n, c)
+    g = rs.standard_normal((2, n, c)).astype(np.float32)
+    scale = ch ** -0.5
+    out, vjp = jax.vjp(lambda q, k, v: factorized_attention_xla(q, k, v, ch, scale),
+                       *(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    np.testing.assert_allclose(fa.factorized_attention_ref(q, k, v, ch, scale).numpy(),
+                               np.asarray(out), **TOL)
+    got = fa.factorized_attention_bwd_ref(q, k, v, torch.from_numpy(g), ch, scale)
+    for a, e in zip(got, vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(a.numpy(), np.asarray(e), **TOL)
+
+
 def _chunked_attention_fwd(q, k, v, ch, scale):
     """The CUDA forward's two launches in plain torch, fp32: the partials of k
-    and v per chunk of ``ATTN_FWD_CHUNK_ROWS[ch]`` tokens, the fold over
-    the chunks in their order, then out = scale·q·T."""
+    and v per chunk of ``ATTN_FWD_CHUNK_ROWS`` tokens of ch's width bucket,
+    the fold over the chunks in their order, then out = scale·q·T."""
     b, n, c = q.shape
     qf, kf, vf = (t.reshape(b, n, c // ch, ch) for t in (q, k, v))
-    t = _fold_chunks(_chunk_partials(kf, vf, ATTN_FWD_CHUNK_ROWS[ch]))[2]
+    t = _fold_chunks(_chunk_partials(kf, vf, ATTN_FWD_CHUNK_ROWS[attn_bucket(ch)]))[2]
     return (scale * torch.einsum("bnhi,bhij->bnhj", qf, t)).reshape(b, n, c)
 
 
@@ -76,7 +100,7 @@ def test_chunked_attention_fwd_matches_xla(c, ch, n):
     q, k, v = (rs.standard_normal((2, n, c)).astype(np.float32) for _ in range(3))
     k *= 20.0
     k[:, -1, 3] = k[:, :, 3].max() + 5.0
-    rows = ATTN_FWD_CHUNK_ROWS[ch]
+    rows = ATTN_FWD_CHUNK_ROWS[attn_bucket(ch)]
     assert len(np.unique(k.argmax(axis=1) // rows)) > 1 or n <= rows
     scale = ch ** -0.5
     want = np.asarray(factorized_attention_xla(*map(jnp.asarray, (q, k, v)), ch, scale))

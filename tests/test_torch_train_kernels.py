@@ -36,7 +36,8 @@ from mdvit_tpu_torch.ops.layers import (draw_seed, dropout2d, drop_path, fast_dr
                                          fast_uniform, hash_u32)
 from mdvit_tpu_torch.ops.norm import DomainBatchNorm
 from mdvit_tpu_torch.train.optim import build_optimizer
-from tests.test_torch_kernels_gpu import ATTN_CHUNK_ROWS, ATTN_FWD_CHUNK_ROWS
+from tests.test_torch_kernels_gpu import (ATTN_BUCKETS, ATTN_CHUNK_ROWS,
+                                          ATTN_FWD_CHUNK_ROWS, attn_bucket)
 
 torch.set_num_threads(2)
 
@@ -110,7 +111,7 @@ def _chunked_attention_bwd(q, k, v, g, ch, scale):
     dk = ks ⊙ (v·dTᵀ − inner), inner = Σ_j dT ⊙ T, ks = exp(k − M) / L."""
     b, n, c = q.shape
     qf, kf, vf, gf = (t.reshape(b, n, c // ch, ch) for t in (q, k, v, g))
-    rows = ATTN_CHUNK_ROWS[ch]
+    rows = ATTN_CHUNK_ROWS[attn_bucket(ch)]
     parts = _chunk_partials(kf, vf, rows)
     mx, inv_l, t = _fold_chunks(parts)
     d = 0.0
@@ -129,7 +130,10 @@ def _chunked_attention_bwd(q, k, v, g, ch, scale):
 # 40, 64; the forward's 64 at ch 64), from one chunk plus one row up to 32
 # chunks
 CHUNKED_CASES = [(64, 8, 257), (64, 8, 1000), (128, 16, 33), (128, 16, 257),
-                 (320, 40, 1000), (512, 64, 33), (512, 64, 1000)]
+                 (320, 40, 1000), (512, 64, 33), (512, 64, 1000),
+                 # the classifiers' widths off MDViT's, in their buckets' chunks,
+                 # at N = H·W + 1 (CoaT's cls row)
+                 (152, 19, 197), (176, 22, 197), (216, 27, 785), (368, 46, 197)]
 
 
 @pytest.mark.parametrize("c,ch,n", CHUNKED_CASES, ids=lambda x: str(x))
@@ -143,7 +147,7 @@ def test_chunked_attention_bwd_matches_xla(c, ch, n):
     q, k, v, g = (_np(rs, 2, n, c) for _ in range(4))
     k *= 20.0
     k[:, -1, 3] = k[:, :, 3].max() + 5.0
-    rows = ATTN_CHUNK_ROWS[ch]
+    rows = ATTN_CHUNK_ROWS[attn_bucket(ch)]
     assert len(np.unique(k.argmax(axis=1) // rows)) > 1 or n <= rows
     scale = ch ** -0.5
     _, vjp = jax.vjp(lambda q, k, v: factorized_attention_xla(q, k, v, ch, scale),
@@ -156,14 +160,23 @@ def test_chunked_attention_bwd_matches_xla(c, ch, n):
 
 
 def test_attention_chunk_rows():
-    """The backward's chunk of each head width holds 2048 to 2560 values an
-    input, the forward's the same but at ch 64 twice that (it stages two
-    inputs, not four), in rows a multiple of 4 (the kernels' 4-row register
-    tiles), for every head width the kernels are built for; the emulation
-    cuts N tokens into ⌈N / rows⌉ chunks."""
-    assert ATTN_CHUNK_ROWS == {8: 256, 16: 128, 40: 64, 64: 32}
-    assert ATTN_FWD_CHUNK_ROWS == {8: 256, 16: 128, 40: 64, 64: 64}
-    assert sorted(ATTN_CHUNK_ROWS) == sorted(fa.KERNEL_CH)
+    """Every head width 1..64 runs in a width bucket at least as wide, a
+    multiple of 4 (the kernels' 4-column register tiles); MDViT's 8, 16, 40
+    and 64 as themselves. The backward's chunk of each bucket holds 2048 to
+    2560 values an input, the forward's the same but at ch 64 twice that (it
+    stages two inputs, not four), in rows a multiple of 4 (the 4-row register
+    tiles), with MDViT's rows as before; the emulation cuts N tokens into
+    ⌈N / rows⌉ chunks."""
+    assert {ch: ATTN_CHUNK_ROWS[ch] for ch in (8, 16, 40, 64)} == {
+        8: 256, 16: 128, 40: 64, 64: 32}
+    assert {ch: ATTN_FWD_CHUNK_ROWS[ch] for ch in (8, 16, 40, 64)} == {
+        8: 256, 16: 128, 40: 64, 64: 64}
+    assert sorted(ATTN_CHUNK_ROWS) == sorted(ATTN_FWD_CHUNK_ROWS) == list(ATTN_BUCKETS)
+    assert max(ATTN_BUCKETS) == fa.MAX_CH and all(b % 4 == 0 for b in ATTN_BUCKETS)
+    assert all(ch <= attn_bucket(ch) for ch in range(1, fa.MAX_CH + 1))
+    assert [attn_bucket(ch) for ch in (8, 12, 16, 19, 22, 24, 27, 28, 32, 36, 40, 46, 60,
+                                       64)] == [8, 12, 16, 20, 24, 24, 28, 28, 32, 36, 40,
+                                                48, 64, 64]
     for ch, rows in ATTN_CHUNK_ROWS.items():
         assert 2048 <= rows * ch <= 2560 and rows % 4 == 0
         fwd = ATTN_FWD_CHUNK_ROWS[ch]

@@ -106,14 +106,16 @@ def test_swin_classifier_forward_matches_jax():
 
 
 def test_registry_covers_jax():
-    """Every model the JAX registry builds is ported or named as not yet;
-    what is not yet is the MPViT and CoaT classifiers, and they refuse."""
-    ported = set(registry.BUILDERS)
-    assert set(jax_registry.list_models()) <= ported | set(registry.UNPORTED)
-    assert set(registry.UNPORTED) == set(CLASSIFIERS)
-    assert not ported & set(registry.UNPORTED)
-    with pytest.raises(NotImplementedError, match="queue A item 4b"):
-        registry.build_model("coat_tiny", device="cpu")
+    """Every model the JAX registry builds is ported, the MPViT and CoaT
+    classifiers among them, and ``coat_tiny`` builds: a classifier's
+    output at its 224² default."""
+    assert set(jax_registry.list_models()) <= set(registry.BUILDERS)
+    assert set(CLASSIFIERS) < set(registry.CLASSIFIERS)
+    model = registry.build_model("coat_tiny", device="cpu", num_classes=5)
+    assert model.config["img_size"] == 224
+    with torch.no_grad():
+        out = model(torch.zeros(1, 32, 32, 3))
+    assert out["logits"].shape == (1, 5) and out["feat"].shape == (1, 152)
 
 
 def test_swin_unet_default_widths():
