@@ -149,13 +149,31 @@ Phases, each printing JSON lines; any failure exits non-zero:
             against its plain versions); forward img/s, device-busy ms,
             idle share and peak in fp32 and bf16; A's and A′'s device ms a
             call summed from the ``kernel_classifier`` records;
-16. the ``kernels`` line (launches from the trainer's ``fit``, and by path
+16. cp       context parallelism: A and A′ on the row halves of the four
+            stage shapes (B=16) and of BASE's four grids at 512² (B=2, the
+            shapes a rank of the 2-rank step sends them), fp32 and bf16
+            (each half's partials, the workspaces concatenated in rank order
+            as the all-gather gives them, each half's apply) against the
+            single call and the plain split, B–C′ on halo'd row halves
+            against the full grid, device ms of one half's A and A′ beside
+            the single call's and the bytes a rank gathers; an NCCL ctx
+            group of one against no group (the stage forward bit-equal, the
+            BASE forward); then two gloo ranks on the one card against one
+            process: MDViT's stage 0 at full width (forward, gradients) and
+            BASE at full width at 512², B=2 (fp32 and bf16 forwards, one
+            fp32 CP train step: loss, BN stats, gradients, launches a rank),
+            step ms, device-busy ms and peak MiB a rank;
+17. the ``kernels`` line (launches from the trainer's ``fit``, and by path
    under ``launches_by_path``, ``zoo`` all 0), the card's name and power
    limit, and last the ``{"ok": true, "device": ...}`` line. Each phase
    prints its seconds.
 
-``--dp-cards`` runs only the build and the dp phase, with one NCCL rank on
-each visible card (a host of several cards) in place of the gloo ranks.
+``--dp-cards`` runs only the build, the dp phase with one NCCL rank on each
+visible card (a host of several cards) in place of the gloo ranks, and the
+cp phase's ranks: ctx over every card at 512², B=2, and on four cards the
+(2, 2) data × ctx grid at B=4, each against one process. ``--cp-only`` runs
+only the build and the cp phase; with ``--dp-cards``, only the build and the
+cp phase's NCCL ranks.
 
 Every phase runs with TF32 off (``device.no_tf32``), as the entry points
 do, so the direct model calls and cuDNN's library times are full fp32 too;
@@ -198,12 +216,16 @@ from mdvit_tpu_torch.data.preprocess import normalize
 from mdvit_tpu_torch.device import deterministic, no_tf32
 from mdvit_tpu_torch.models import coat, mpvit
 from mdvit_tpu_torch.models.base import split_seg
+from mdvit_tpu_torch.models.blocks import MHSAStage
 from mdvit_tpu_torch.models.registry import build_mdvit, build_model
 from mdvit_tpu_torch.ops import dwconv, kernels
 from mdvit_tpu_torch.ops import factorized_attention as fa
 from mdvit_tpu_torch.ops.layers import fast_normal, fast_uniform
 from mdvit_tpu_torch.ops.norm import DomainBatchNorm
 from mdvit_tpu_torch.ops.resize import resize_bilinear
+from mdvit_tpu_torch.parallel.context import (ContextMesh, make_context_parallel_train_step,
+                                              make_dp_context_mesh, model_apply_context_parallel,
+                                              stage_apply_context_parallel)
 from mdvit_tpu_torch.predict import load_experiment, make_forward
 from mdvit_tpu_torch.train import checkpoints as ckpt
 from mdvit_tpu_torch.train import steps as steps_module
@@ -372,6 +394,39 @@ DP_LR = 1e-2
 DP_REL_TOL = 1e-5
 DP_TIMED = 3
 DP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_dp"
+# the cp phase: kernels A and A′ on row halves (partials of each half, the
+# workspaces concatenated as the all-gather gives them, each half's apply)
+# against the single call, relative to the largest value in fp32 (bf16: TOL);
+# CP_WORLD gloo ranks on the one card against one process: MDViT's stage 0 at
+# full width (64², B=16; output and gradients relative to their largest
+# value: per-token products on half the rows may take other cuBLAS kernels),
+# and BASE at full width at CP_IMG, B = CP_B (the size CP exists for): logits
+# relative to max(1, max|logit|), the step's loss relative, BN stats relative
+# to their largest value at JAX's DP×CP tolerance (a variance is E[x²] − mean²
+# of sums over the ranks: where it is small against mean², its absolute
+# noise is a larger share of it), gradients by GRAD_L2_TOL; the bf16 forward's
+# logits against one process's fp32 logits (relative to max(1, max|logit|))
+# no farther than CP_BF16_FACTOR times one process's bf16 logits are: a rank's
+# GEMMs and convs run on fewer rows, where cuBLAS and cuDNN may take other
+# kernels whose bf16 roundings differ, and 16 blocks carry an ulp's difference
+# on, so the ranks' bf16 bits need not be one process's; A, B, C, A′, B′, C′
+# launched once a block a rank (CP_BLOCKS blocks); steps timed
+CP_WORLD = 2
+CP_IMG = 512
+CP_B = 2
+CP_REL_TOL = 1e-6
+CP_STAGE_TOL = 1e-5
+CP_STAGE_GRAD_TOL = 1e-4
+CP_FWD_TOL = 5e-4
+CP_BF16_FACTOR = 2.0
+CP_LOSS_RTOL = 1e-4
+CP_BN_TOL = 1e-3
+CP_BLOCKS = 16
+# BASE's four token grids at CP_IMG (the stem /4, then /2 a stage), whose row
+# halves a rank of the 2-rank step runs A and A′ on
+CP_STAGES = [(CP_IMG // 4 >> i, CP_IMG // 4 >> i, c, ch) for i, (_, _, c, ch) in enumerate(STAGES)]
+CP_TIMED = 3
+CP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_cp"
 # the zoo phase: the segmentation comparators at full width, 256², trained
 # and served through the entry points (none reaches the six kernels); the
 # card against the host CPU at ZOO_CPU_B images, relative to max(1, max|logit|);
@@ -2133,6 +2188,396 @@ def phase_dp(seed: int, world: int = DP_WORLD, backend: str = "gloo") -> dict:
     return r0["launches"]
 
 
+# ----------------------------------------------------------------- cp
+
+
+def _cp_attention(q, k, v, g, ch: int, plain: bool = False):
+    """A and A′ as two ranks run them: each row half's partials, the halves'
+    workspaces concatenated a (b, h) in rank order (what the all-gather
+    gives), each half's apply; ``plain``: the same through the plain
+    versions. Returns out, (dq, dk, dv) and the two workspaces."""
+    scale = ch ** -0.5
+    if plain:
+        parts, apply = fa.factorized_attention_partials_ref, fa.factorized_attention_apply_ref
+        bparts, bapply = fa.factorized_attention_bwd_partials_ref, fa.factorized_attention_bwd_apply_ref
+    else:
+        ops = torch.ops.mdvit
+        parts, apply = ops.factorized_attention_partials, ops.factorized_attention_apply
+        bparts, bapply = ops.factorized_attention_bwd_partials, ops.factorized_attention_bwd_apply
+    n = q.shape[1]
+    rows = [slice(0, n // 2), slice(n // 2, n)]
+    ws = torch.cat([parts(k[:, r], v[:, r], ch) for r in rows], 1)
+    out = torch.cat([apply(q[:, r], ws, ch, scale) for r in rows], 1)
+    wsb = torch.cat([bparts(q[:, r], k[:, r], v[:, r], g[:, r], ch) for r in rows], 1)
+    grads = [torch.cat(d, 1) for d in zip(*[bapply(k[:, r], v[:, r], g[:, r], wsb, ch, scale)
+                                             for r in rows])]
+    return out, grads, ws, wsb
+
+
+def _rel(got, want) -> float:
+    return ((got.float() - want.float()).abs().max() /
+            want.float().abs().max().clamp(min=1e-30)).item()
+
+
+def _halo_rows(x: torch.Tensor, r: int, h2: int, p: int) -> torch.Tensor:
+    """Rank r's h2 rows of x with p rows of the zero-padded grid on each side."""
+    return F.pad(x, (0, 0, 0, 0, p, p))[:, r * h2:r * h2 + h2 + 2 * p]
+
+
+def _add_halo(parts, h: int, h2: int, p: int) -> torch.Tensor:
+    """The halo'd row blocks' gradients added into the grid (each halo row's
+    into its owner's row), the padding cut off."""
+    full = parts[0].new_zeros((parts[0].shape[0], h + 2 * p) + tuple(parts[0].shape[2:]))
+    for r, t in enumerate(parts):
+        full[:, r * h2:r * h2 + h2 + 2 * p] += t
+    return full[:, p:p + h]
+
+
+def cp_kernels(seed: int) -> list:
+    """The cp phase's kernels alone at MDViT's four stage shapes, B=16, and at
+    the four grids of BASE at ``CP_IMG``, B = ``CP_B``, whose row halves are
+    what a rank of the 2-rank step sends them (``CP_STAGES``): A and A′ on row
+    halves against the single call (within ``CP_REL_TOL`` in fp32) and
+    against the plain split; B–C′ on halo'd row halves against the full grid;
+    device ms of one half's A (partials + apply) and A′ beside the single
+    call's and their bounds (phase 2's work on a half's rows), and the bytes
+    a rank's workspace sends to the gather."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 60)
+    recs = []
+    for (h, w, c, ch), batch in itertools.chain(((s, BATCH) for s in STAGES),
+                                                 ((s, CP_B) for s in CP_STAGES)):
+        n, h2 = h * w, h // 2
+        for dtype in (torch.float32, torch.bfloat16):
+            def rnd(*shape, std=1.0):
+                return (torch.randn(shape, generator=gen, device="cuda") * std).to(dtype)
+
+            q, k, v, g = rnd(batch, n, c), rnd(batch, n, c, std=3.0), rnd(batch, n, c), rnd(batch, n, c)
+            scale = ch ** -0.5
+            out, grads, ws, wsb = _cp_attention(q, k, v, g, ch)
+            single = fa.factorized_attention(q, k, v, ch, scale)
+            single_g = torch.ops.mdvit.factorized_attention_bwd(q, k, v, g, ch, scale)
+            p_out, p_grads, _, _ = _cp_attention(q, k, v, g, ch, plain=True)
+            rel_single = max(_rel(a, b) for a, b in zip([out, *grads], [single, *single_g]))
+            checks = [compare(a, b, dtype) for a, b in zip([out, *grads], [p_out, *p_grads])]
+            ok_single = rel_single <= (CP_REL_TOL if dtype == torch.float32 else TOL[dtype]["rel"])
+            # B–C′ on the halo'd halves against the full grid
+            wc, bc = rnd(3, 3, c, std=0.2).contiguous(), rnd(c, std=0.1)
+            wr, br = rnd(7, 7, c, std=0.1).contiguous(), rnd(c, std=0.1)
+            qg, vg, gg = (t.reshape(batch, h, w, c) for t in (q, v, g))
+            xg = vg
+            cpe = torch.cat([dwconv.cpe_conv(_halo_rows(xg, r, h2, 1), wc, bc)[:, 1:-1]
+                             for r in (0, 1)], 1)
+            crpe = torch.cat([dwconv.crpe_conv(_halo_rows(qg[:, r * h2:(r + 1) * h2], 0, h2, 3),
+                                               _halo_rows(vg, r, h2, 3), wr, br)[:, 3:-3]
+                              for r in (0, 1)], 1)
+            cb = [torch.ops.mdvit.cpe_conv_bwd(_halo_rows(xg, r, h2, 1), wc,
+                                               _halo_rows(gg[:, r * h2:(r + 1) * h2], 0, h2, 1))
+                  for r in (0, 1)]
+            rb = [torch.ops.mdvit.crpe_conv_bwd(_halo_rows(qg[:, r * h2:(r + 1) * h2], 0, h2, 3),
+                                                _halo_rows(vg, r, h2, 3), wr, br,
+                                                _halo_rows(gg[:, r * h2:(r + 1) * h2], 0, h2, 3))
+                  for r in (0, 1)]
+            full_c = dwconv.cpe_conv(xg, wc, bc)
+            full_r = dwconv.crpe_conv(qg, vg, wr, br)
+            fcb = torch.ops.mdvit.cpe_conv_bwd(xg, wc, gg)
+            frb = torch.ops.mdvit.crpe_conv_bwd(qg, vg, wr, br, gg)
+            dw_c = cb[0][1] + cb[1][1]
+            dw_r = rb[0][2] + rb[1][2]
+            halo = {
+                "cpe_conv": compare(cpe, full_c, dtype),
+                "crpe_conv": compare(crpe, full_r, dtype),
+                "cpe_conv_bwd_dx": compare(_add_halo([t[0] for t in cb], h, h2, 1), fcb[0], dtype),
+                "crpe_conv_bwd_dq": compare(torch.cat([t[0][:, 3:-3] for t in rb], 1), frb[0], dtype),
+                "crpe_conv_bwd_dv": compare(_add_halo([t[1] for t in rb], h, h2, 3), frb[1], dtype),
+                "cpe_conv_bwd_dwb_rel": _rel(dw_c, fcb[1]), "crpe_conv_bwd_dwb_rel": _rel(dw_r, frb[2])}
+            halo_ok = (all(v["ok"] for v in halo.values() if isinstance(v, dict))
+                       and halo["cpe_conv_bwd_dwb_rel"] <= BWD_WEIGHT_REL_TOL
+                       and halo["crpe_conv_bwd_dwb_rel"] <= BWD_WEIGHT_REL_TOL)
+            half = slice(0, n // 2)
+            half_el, item = batch * (n // 2) * c, q.element_size()
+            rec = {"phase": "cp", "part": "kernels", "shape": [batch, n, c, ch],
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "split_vs_single_max_rel": rel_single,
+                   "split_bit_equal_single": all(_same_bits(a, b) for a, b in
+                                                 zip([out, *grads], [single, *single_g])),
+                   "split_vs_plain": [ch_["max_rel_err"] for ch_ in checks],
+                   "halo": {k_: (v_["max_rel_err"] if isinstance(v_, dict) else v_)
+                            for k_, v_ in halo.items()},
+                   "gather_bytes_per_rank": {"fwd": ws.numel() * 4 // 2, "bwd": wsb.numel() * 4 // 2},
+                   "ms": {"A_single": device_ms(lambda: fa.factorized_attention(q, k, v, ch, scale)),
+                          "A_half": device_ms(lambda: torch.ops.mdvit.factorized_attention_apply(
+                              q[:, half], torch.ops.mdvit.factorized_attention_partials(
+                                  k[:, half], v[:, half], ch), ch, scale)),
+                          "A_bwd_single": device_ms(lambda: torch.ops.mdvit.factorized_attention_bwd(
+                              q, k, v, g, ch, scale)),
+                          "A_bwd_half": device_ms(lambda: torch.ops.mdvit.factorized_attention_bwd_apply(
+                              k[:, half], v[:, half], g[:, half],
+                              torch.ops.mdvit.factorized_attention_bwd_partials(
+                                  q[:, half], k[:, half], v[:, half], g[:, half], ch), ch, scale))},
+                   "bound_ms": {"A_half": bound_ms(4 * half_el * item, 4 * half_el * ch)[0],
+                                "A_bwd_half": bound_ms(7 * half_el * item, 10 * half_el * ch)[0]},
+                   "tol": {"split_vs_single_rel": CP_REL_TOL if dtype == torch.float32
+                           else TOL[dtype]["rel"], **TOL[dtype]}}
+            emit(rec)
+            recs.append(rec)
+            if not (ok_single and all(ch_["ok"] for ch_ in checks) and halo_ok):
+                raise RuntimeError(f"cp kernels failed: {json.dumps(rec)[:2000]}")
+    return recs
+
+
+def _cp_stage(seed: int) -> torch.nn.Module:
+    """MDViT's stage 0 at full width: dim 64, 2 blocks, 8 heads, MLP ratio 8,
+    Sup gate, 4 domains."""
+    torch.manual_seed(seed + 61)
+    return MHSAStage(64, 2, 8, 8.0, TRAIN_D, sup=True).cuda().eval()
+
+
+def _cp_inputs(seed: int, batch: int):
+    gen = torch.Generator().manual_seed(seed + 62)
+    x = torch.randn((batch, CP_IMG, CP_IMG, 3), generator=gen)
+    y = (torch.rand((batch, CP_IMG, CP_IMG, 1), generator=gen) > 0.5).float()
+    dom = torch.eye(TRAIN_D)[torch.arange(batch) % TRAIN_D]
+    return x.cuda(), y.cuda(), dom.cuda()
+
+
+def _cp_base(seed: int, dtype=torch.float32) -> torch.nn.Module:
+    return build_model("BASE", img_size=CP_IMG, num_domains=TRAIN_D, dtype=dtype,
+                       device="cuda", seed=seed, drop_rate=0.1, drop_path_rate=0.1)
+
+
+def _cp_run(seed: int, group, stage: bool = True, batch: int = CP_B) -> dict:
+    """What one rank of ``group`` (a process group or a ``ContextMesh``;
+    None: one process) computes: MDViT's stage 0 (64², B=16) forward and the
+    gradients of Σ out·g (summed over the ranks); BASE at ``CP_IMG``, B =
+    ``batch``: the bf16 and fp32 eval forwards' logits, one CP train step
+    (AdamW 1e-4, wd 0.05) with the launches around it, its loss, gradients and BN stats; then
+    ``CP_TIMED`` steps timed, one profiled, and the step's peak memory."""
+    res = {}
+    if stage:
+        st = _cp_stage(seed)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 63)
+        x = torch.randn((BATCH, 64 * 64, 64), generator=gen, device="cuda")
+        g = torch.randn((BATCH, 64 * 64, 64), generator=gen, device="cuda")
+        dom = torch.eye(TRAIN_D, device="cuda")[torch.arange(BATCH) % TRAIN_D]
+        kernels.reset_launches()
+        out = (stage_apply_context_parallel(st, x, (64, 64), group, dom) if group is not None
+               else st(x, (64, 64), dom))
+        grads = torch.autograd.grad((out * g).sum(), list(st.parameters()))
+        res["stage_launches"] = dict(kernels.LAUNCHES)
+        if group is not None:
+            flat = torch.cat([t.reshape(-1) for t in grads])
+            torch.distributed.all_reduce(flat, group=group)
+            grads = [p.view_as(t) for p, t in zip(flat.split([t.numel() for t in grads]), grads)]
+        res["stage_out"], res["stage_grads"] = out.detach().cpu(), [t.cpu() for t in grads]
+        del st, x, g, out, grads
+    x, y, dom = _cp_inputs(seed, batch)
+    model = _cp_base(seed, torch.bfloat16).eval()
+    with torch.no_grad():
+        res["logits_bf16"] = model_apply_context_parallel(model, x, dom, group)["seg"].float().cpu()
+    model = _cp_base(seed)
+    with torch.no_grad():
+        out = model_apply_context_parallel(model.eval(), x, dom, group)
+    res["logits"] = out["seg"].cpu()
+    model.train()
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=0.05)
+    step = make_context_parallel_train_step(model, opt, group)
+    kernels.reset_launches()
+    loss = step(x, y, dom, torch.Generator().manual_seed(seed + 64))
+    torch.cuda.synchronize()
+    res["launches"] = dict(kernels.LAUNCHES)
+    res["loss"] = loss.cpu()
+    res["grads"] = [p.grad.detach().cpu() for p in model.parameters()]
+    res["stats"] = [b.detach().cpu() for n, b in model.named_buffers() if "running" in n]
+    gen = torch.Generator().manual_seed(seed + 65)
+    lat = []
+    for _ in range(CP_TIMED):
+        _barrier(group)
+        t0 = time.perf_counter()
+        step(x, y, dom, gen)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    res["step_ms"] = lat
+    _barrier(group)
+    res["device_busy_ms"] = _profile_calls(lambda: step(x, y, dom, gen), reps=1,
+                                           cpu=False)["device_busy_ms"]
+    _barrier(group)
+    _reset_peak()
+    step(x, y, dom, gen)
+    torch.cuda.synchronize()
+    res["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    return res
+
+
+def _barrier(group) -> None:
+    if group is None:
+        return
+    g = group.grid if isinstance(group, ContextMesh) else group
+    torch.distributed.barrier(group=g)
+
+
+def _cp_rank(rank: int, seed: int, store: str, out: str, world: int, backend: str,
+             grid, stage: bool, batch: int) -> None:
+    """A rank of the cp phase: ``_cp_run`` in the group of all ranks (or the
+    (data, ctx) ``grid``), saved to ``out/rank<r>.pt``; gloo ranks share card
+    0, an NCCL rank takes card r."""
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    torch.distributed.init_process_group(backend, init_method=f"file://{store}", rank=rank,
+                                         world_size=world)
+    try:
+        group = make_dp_context_mesh(*grid) if grid else torch.distributed.group.WORLD
+        with no_tf32():
+            res = _cp_run(seed, group, stage, batch)
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _cp_spawn(seed: int, world: int, backend: str, grid=None, stage: bool = True,
+              batch: int = CP_B) -> list:
+    tag = f"{backend}{world}{'x'.join(map(str, grid or ()))}"
+    torch.multiprocessing.start_processes(
+        _cp_rank, args=(seed, str(CP_DIR / tag), str(CP_DIR), world, backend, grid, stage,
+                        batch), nprocs=world, join=True, start_method="spawn")
+    return [torch.load(CP_DIR / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def _cp_compare(ranks: list, single: dict, stage: bool) -> dict:
+    """The ranks' results against one process's: the stage's output and
+    gradients (relative to their largest value), BASE's fp32 logits and its
+    bf16 logits against one process's bf16 and fp32 logits (all relative to
+    max(1, max|fp32 logit|)), the step's loss (relative), BN stats (relative to
+    their largest value) and gradients (relative L2); the launches a rank."""
+    r0 = ranks[0]
+    scale = max(1.0, single["logits"].abs().max().item())
+    rec = {"logits_err": max((r["logits"] - single["logits"]).abs().max().item()
+                             for r in ranks) / scale,
+           "logits_bf16_err": max((r["logits_bf16"] - single["logits_bf16"]).abs().max().item()
+                                  for r in ranks) / scale,
+           "logits_bf16_vs_fp32": max((r["logits_bf16"] - single["logits"]).abs().max().item()
+                                      for r in ranks) / scale,
+           "one_process_bf16_vs_fp32": (single["logits_bf16"] - single["logits"]).abs().max().item()
+           / scale,
+           "logits_bf16_finite": all(bool(torch.isfinite(r["logits_bf16"]).all()) for r in ranks),
+           "loss_rel_err": max(abs(r["loss"].item() - single["loss"].item()) for r in ranks)
+           / abs(single["loss"].item()),
+           "bn_stats_rel_err": max(_rel_max(a, b) for r in ranks
+                                   for a, b in zip(r["stats"], single["stats"])),
+           "grad_l2_rel": max(_rel_l2(r["grads"], single["grads"]) for r in ranks),
+           "replicas_bit_equal": all(_same_bits(a, b) for r in ranks[1:]
+                                     for a, b in zip(r["grads"], r0["grads"])),
+           "launches_per_rank": [r["launches"] for r in ranks],
+           "step_ms": {"one_process": single["step_ms"],
+                       **{f"rank{i}": r["step_ms"] for i, r in enumerate(ranks)}},
+           "device_busy_ms": {"one_process": single["device_busy_ms"],
+                              **{f"rank{i}": r["device_busy_ms"] for i, r in enumerate(ranks)}},
+           "peak_mib": {"one_process": single["peak_mib"],
+                        **{f"rank{i}": r["peak_mib"] for i, r in enumerate(ranks)}}}
+    if stage:
+        rec["stage_out_rel_err"] = max(_rel(r["stage_out"], single["stage_out"]) for r in ranks)
+        rec["stage_grad_rel_err"] = max(_rel(a, b) for r in ranks
+                                        for a, b in zip(r["stage_grads"], single["stage_grads"]))
+        rec["stage_launches_per_rank"] = [r["stage_launches"] for r in ranks]
+    return rec
+
+
+def _cp_ok(rec: dict, stage: bool) -> bool:
+    per_block = {k: CP_BLOCKS for k in FORWARD + BACKWARD}
+    ok = (rec["logits_err"] <= CP_FWD_TOL and rec["logits_bf16_finite"]
+          and rec["logits_bf16_vs_fp32"] <= CP_BF16_FACTOR * rec["one_process_bf16_vs_fp32"]
+          and rec["loss_rel_err"] <= CP_LOSS_RTOL
+          and rec["bn_stats_rel_err"] <= CP_BN_TOL and rec["grad_l2_rel"] <= GRAD_L2_TOL
+          and rec["replicas_bit_equal"]
+          and all(n == per_block for n in rec["launches_per_rank"]))
+    if stage:
+        ok = ok and (rec["stage_out_rel_err"] <= CP_STAGE_TOL
+                     and rec["stage_grad_rel_err"] <= CP_STAGE_GRAD_TOL
+                     and all(n == {k: 2 for k in FORWARD + BACKWARD}
+                             for n in rec["stage_launches_per_rank"]))
+    return ok
+
+
+def cp_group_of_one(seed: int) -> dict:
+    """An NCCL ctx group of one against no group: MDViT's stage 0 and BASE
+    (256², B=2) forwards. The stage runs the same kernels on the same inputs
+    (the split A folds the same partials in the same order; B and C compute
+    each output's taps in one order whatever the tile, on explicit zero halo
+    rows in place of their row padding), so its gate is bit-equality. BASE's
+    strided and 3×3 convs read explicit zero halo rows with padding (0, 1) in
+    place of padding (1, 1), which cuDNN may serve with another algorithm:
+    the record says whether its bits held, and its gate is
+    ``MODEL_REL_TOL``."""
+    torch.distributed.init_process_group("nccl", init_method=f"file://{CP_DIR / 'nccl1'}",
+                                         rank=0, world_size=1)
+    try:
+        world = torch.distributed.group.WORLD
+        st = _cp_stage(seed)
+        x = torch.randn((BATCH, 64 * 64, 64), generator=torch.Generator().manual_seed(seed)).cuda()
+        dom = torch.eye(TRAIN_D, device="cuda")[torch.arange(BATCH) % TRAIN_D]
+        with torch.no_grad():
+            a, b = st(x, (64, 64), dom), stage_apply_context_parallel(st, x, (64, 64), world, dom)
+            model = build_model("BASE", img_size=IMG, num_domains=TRAIN_D, device="cuda",
+                                seed=seed).eval()
+            xi = torch.randn((2, IMG, IMG, 3), generator=torch.Generator().manual_seed(seed)).cuda()
+            m1 = model(xi, dom[:2])["seg"]
+            m2 = model_apply_context_parallel(model, xi, dom[:2], world)["seg"]
+    finally:
+        torch.distributed.destroy_process_group()
+    rec = {"stage_bit_equal": _same_bits(a, b), "stage_rel_err": _rel(b, a),
+           "base_bit_equal": _same_bits(m1, m2), "base_rel_err": _rel(m2, m1)}
+    if not (rec["stage_bit_equal"] and rec["base_rel_err"] <= MODEL_REL_TOL):
+        raise RuntimeError(f"cp group of one failed: {rec}")
+    return rec
+
+
+def phase_cp(seed: int) -> dict:
+    """Context parallelism on the card: (1) the kernels alone on row halves
+    (``cp_kernels``); (2) a ctx group of one against no group
+    (``cp_group_of_one``); (3) ``CP_WORLD`` gloo ranks on card 0 against one
+    process: MDViT's stage 0 at full width forward and backward, BASE at full
+    width at ``CP_IMG``, B = ``CP_B``: the forward, one train step, the
+    launches a rank (A, B, C, A′, B′, C′ once a block), step ms, device-busy
+    ms and peak MiB a rank against one process. Returns rank 0's step
+    launches."""
+    shutil.rmtree(CP_DIR, ignore_errors=True)
+    CP_DIR.mkdir(parents=True)
+    cp_kernels(seed)
+    one = cp_group_of_one(seed)
+    single = _cp_run(seed, None)
+    ranks = _cp_spawn(seed, CP_WORLD, "gloo")
+    rec = {"phase": "cp", "part": "ranks", "world": CP_WORLD, "backend": "gloo",
+           "img": CP_IMG, "B": CP_B, "stage": [BATCH, 64 * 64, 64, 8],
+           "group_of_one_nccl": one, **_cp_compare(ranks, single, True),
+           "tol": {"logits": CP_FWD_TOL, "logits_bf16_vs_fp32_factor": CP_BF16_FACTOR,
+                   "loss_rel": CP_LOSS_RTOL, "bn_rel": CP_BN_TOL,
+                   "grad_l2": GRAD_L2_TOL, "stage_out_rel": CP_STAGE_TOL,
+                   "stage_grad_rel": CP_STAGE_GRAD_TOL}}
+    emit(rec)
+    shutil.rmtree(CP_DIR, ignore_errors=True)
+    if not _cp_ok(rec, True):
+        raise RuntimeError(f"cp phase failed: {json.dumps(rec)[:2000]}")
+    return ranks[0]["launches"]
+
+
+def phase_cp_cards(seed: int) -> None:
+    """With ``--dp-cards``: ctx over every visible card (one NCCL rank a card)
+    at ``CP_IMG``, B = ``CP_B``, then the (2, 2) data × ctx grid at B = 4,
+    each against one process on card 0."""
+    shutil.rmtree(CP_DIR, ignore_errors=True)
+    CP_DIR.mkdir(parents=True)
+    world = torch.cuda.device_count()
+    runs = [("ctx", None, CP_B)] + ([("dp_x_cp", (2, 2), 4)] if world == 4 else [])
+    for name, grid, batch in runs:
+        single = _cp_run(seed, None, stage=False, batch=batch)
+        ranks = _cp_spawn(seed, world, "nccl", grid, stage=False, batch=batch)
+        rec = {"phase": "cp", "part": name, "world": world, "backend": "nccl",
+               "grid": grid or [1, world], "img": CP_IMG, "B": batch,
+               **_cp_compare(ranks, single, False)}
+        emit(rec)
+        if not _cp_ok(rec, False):
+            raise RuntimeError(f"cp {name} failed: {json.dumps(rec)[:2000]}")
+    shutil.rmtree(CP_DIR, ignore_errors=True)
+
+
 # ----------------------------------------------------------------- zoo
 
 
@@ -2536,6 +2981,9 @@ def main() -> int:
     ap.add_argument("--dp-cards", action="store_true",
                     help="only the build and the dp phase, its ranks NCCL, one a visible "
                     "card (a host of several cards)")
+    ap.add_argument("--cp-only", action="store_true",
+                    help="only the build and the cp phase (with --dp-cards: the cp phase's "
+                    "NCCL ranks alone, without the dp phase)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2559,9 +3007,15 @@ def main() -> int:
         return out
 
     timed("build", phase_build)
-    if args.dp_cards:
+    if args.dp_cards or args.cp_only:
         with no_tf32():
-            timed("dp", phase_dp, args.seed, torch.cuda.device_count(), "nccl")
+            if args.dp_cards and not args.cp_only:
+                timed("dp", phase_dp, args.seed, torch.cuda.device_count(), "nccl")
+            if args.dp_cards:
+                timed("cp_cards", phase_cp_cards, args.seed)
+            else:
+                emit({"phase": "cp_launches", "launches": timed("cp", phase_cp, args.seed)})
+        emit({"phase": "done", "seconds": time.perf_counter() - t0, "by_phase": seconds})
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2582,12 +3036,15 @@ def main() -> int:
         timed("kfold_cli", phase_kfold_cli, args.seed)
         timed("determinism", phase_determinism, args.seed)
         dp_launches = timed("dp", phase_dp, args.seed)
+        cp_launches = timed("cp", phase_cp, args.seed)
         zoo_launches = timed("zoo", phase_zoo, args.seed)
         classifier_launches = timed("classifiers", phase_classifiers, args.seed, summary)
     paths = {"serving B=16 fp32": serving_launches, "train step fp32": step_launches,
              "Trainer.fit": trainer["launches"], "exported program B=16 fp32": export_launches,
              "remat train step fp32": remat_launches,
-             f"dp train step fp32, rank 0 of {DP_WORLD}": dp_launches, "zoo": zoo_launches,
+             f"dp train step fp32, rank 0 of {DP_WORLD}": dp_launches,
+             f"cp train step fp32 BASE {CP_IMG}, rank 0 of {CP_WORLD}": cp_launches,
+             "zoo": zoo_launches,
              "classifiers": classifier_launches}
     line = []
     for name in REPLACES:

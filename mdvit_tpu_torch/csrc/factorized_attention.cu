@@ -453,13 +453,16 @@ __device__ __forceinline__ void fold_chunks(
   for (int u = 0; u < kPer; ++u) t[u] *= s_il[min(tid + u * kThreads, kPairs - 1) / CH];
 }
 
-// Forward launch 2: out = scale * q T for one chunk of one (b, h).
+// Forward launch 2: out = scale * q T for one chunk of one (b, h). The grid's
+// y is the chunks of this call's n_tok rows; fold is the number of partials
+// of a (b, h) in ws, fold_chunks' S: the same chunks, or, under context
+// parallelism, every rank's chunks gathered in rank order.
 template <typename T, int CH, bool kPad>
 __global__ void __launch_bounds__(AttnChunk<CH, false>::kApplyThreads)
     factorized_attention_fwd_apply_kernel(const T* __restrict__ q,
                                           const float* __restrict__ ws,
                                           T* __restrict__ out, int n_tok, int heads,
-                                          int ch_arg, int chunks, long long batch_stride,
+                                          int ch_arg, int fold, long long batch_stride,
                                           long long row_stride, float scale) {
   using P = AttnChunk<CH, false>;
   using F = Fold<CH, P::kApplyThreads>;
@@ -508,7 +511,7 @@ __global__ void __launch_bounds__(AttnChunk<CH, false>::kApplyThreads)
   {
     float t[F::kPerThread], unused[F::kPerThread];
     fold_chunks<CH, kThreads, P::kPartial, false>(
-        ws + static_cast<long long>(bh) * chunks * P::kPartial, chunks, s_m, s_il, t, unused);
+        ws + static_cast<long long>(bh) * fold * P::kPartial, fold, s_m, s_il, t, unused);
 #pragma unroll
     for (int u = 0; u < F::kPerThread; ++u) {
       const int e = tid + u * kThreads;
@@ -539,12 +542,13 @@ __global__ void __launch_bounds__(AttnChunk<CH, false>::kApplyThreads)
   }
 }
 
-// Backward launch 2: dq, dk, dv for one chunk of one (b, h).
+// Backward launch 2: dq, dk, dv for one chunk of one (b, h); fold as in the
+// forward's apply.
 template <typename T, int CH, bool kPad>
 __global__ void __launch_bounds__(AttnChunk<CH, true>::kApplyThreads) factorized_attention_bwd_apply_kernel(
     const T* __restrict__ k, const T* __restrict__ v, const T* __restrict__ g,
     const float* __restrict__ ws, T* __restrict__ dq, T* __restrict__ dk,
-    T* __restrict__ dv, int n_tok, int heads, int ch_arg, int chunks, long long batch_stride,
+    T* __restrict__ dv, int n_tok, int heads, int ch_arg, int fold, long long batch_stride,
     long long row_stride, long long g_batch_stride, long long g_row_stride,
     float scale) {
   using P = AttnChunk<CH, true>;
@@ -614,7 +618,7 @@ __global__ void __launch_bounds__(AttnChunk<CH, true>::kApplyThreads) factorized
   {
     float t[F::kPerThread], d[F::kPerThread];
     fold_chunks<CH, kThreads, P::kPartial, true>(
-        ws + static_cast<long long>(bh) * chunks * P::kPartial, chunks, s_m, s_il, t, d);
+        ws + static_cast<long long>(bh) * fold * P::kPartial, fold, s_m, s_il, t, d);
 #pragma unroll
     for (int u = 0; u < F::kPerThread; ++u) {
       const int e = tid + u * kThreads;
@@ -744,6 +748,101 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out, void* ws,
   });
 }
 
+// The launches of the split ops (context parallelism: a collective gathers
+// the partials of every rank between them). The apply takes fold partials a
+// (b, h) from ws and is an ordinary launch: a programmatic dependency cannot
+// span the collective.
+template <typename T>
+int launch_fwd_partials(const void* k, const void* v, void* ws, int batch, int n_tok,
+                        int heads, int ch, long long batch_stride, long long row_stride,
+                        cudaStream_t stream) {
+  return dispatch_ch(ch, [&](auto c, auto pad) -> int {
+    constexpr int CH = decltype(c)::value;
+    constexpr bool kPad = decltype(pad)::value;
+    using P = AttnChunk<CH, false>;
+    const int chunks = (n_tok + P::kRows - 1) / P::kRows;
+    factorized_attention_fwd_partials_kernel<T, CH, kPad>
+        <<<batch * heads * chunks, kPartThreads, 0, stream>>>(
+            static_cast<const T*>(k), static_cast<const T*>(v), static_cast<float*>(ws),
+            n_tok, heads, ch, chunks, batch_stride, row_stride);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+template <typename T>
+int launch_fwd_apply(const void* q, const void* ws, void* out, int batch, int n_tok,
+                     int heads, int ch, int fold, long long batch_stride,
+                     long long row_stride, float scale, cudaStream_t stream) {
+  return dispatch_ch(ch, [&](auto c, auto pad) -> int {
+    constexpr int CH = decltype(c)::value;
+    constexpr bool kPad = decltype(pad)::value;
+    using P = AttnChunk<CH, false>;
+    const int chunks = (n_tok + P::kRows - 1) / P::kRows;
+    factorized_attention_fwd_apply_kernel<T, CH, kPad>
+        <<<dim3(batch * heads, chunks), P::kApplyThreads, 0, stream>>>(
+            static_cast<const T*>(q), static_cast<const float*>(ws), static_cast<T*>(out),
+            n_tok, heads, ch, fold, batch_stride, row_stride, scale);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+template <typename T>
+int launch_bwd_partials(const void* q, const void* k, const void* v, const void* g,
+                        void* ws, int batch, int n_tok, int heads, int ch,
+                        long long batch_stride, long long row_stride,
+                        long long g_batch_stride, long long g_row_stride,
+                        cudaStream_t stream) {
+  return dispatch_ch(ch, [&](auto c, auto pad) -> int {
+    constexpr int CH = decltype(c)::value;
+    constexpr bool kPad = decltype(pad)::value;
+    using P = AttnChunk<CH, true>;
+    const int chunks = (n_tok + P::kRows - 1) / P::kRows;
+    factorized_attention_bwd_partials_kernel<T, CH, kPad>
+        <<<batch * heads * chunks, kPartThreads, 0, stream>>>(
+            static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+            static_cast<const T*>(g), static_cast<float*>(ws), n_tok, heads, ch, chunks,
+            batch_stride, row_stride, g_batch_stride, g_row_stride);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// The backward's apply, with the dynamic shared memory it needs.
+template <typename T, int CH, bool kPad>
+int bwd_apply(const T* k, const T* v, const T* g, const float* ws, T* dq, T* dk, T* dv,
+              int batch, int n_tok, int heads, int ch, int fold, long long batch_stride,
+              long long row_stride, long long g_batch_stride, long long g_row_stride,
+              float scale, cudaStream_t stream) {
+  using P = AttnChunk<CH, true>;
+  const int chunks = (n_tok + P::kRows - 1) / P::kRows;
+  constexpr int smem = (2 * CH * P::kTPitch + CH * CH + 3 * CH * P::kPitch + 2 * CH) *
+                       static_cast<int>(sizeof(float));
+  auto apply = factorized_attention_bwd_apply_kernel<T, CH, kPad>;
+  if (smem > 48 * 1024) {
+    const int err = static_cast<int>(
+        cudaFuncSetAttribute(apply, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+    if (err != 0) return err;
+  }
+  apply<<<dim3(batch * heads, chunks), P::kApplyThreads, smem, stream>>>(
+      k, v, g, ws, dq, dk, dv, n_tok, heads, ch, fold, batch_stride, row_stride,
+      g_batch_stride, g_row_stride, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd_apply(const void* k, const void* v, const void* g, const void* ws,
+                     void* dq, void* dk, void* dv, int batch, int n_tok, int heads,
+                     int ch, int fold, long long batch_stride, long long row_stride,
+                     long long g_batch_stride, long long g_row_stride, float scale,
+                     cudaStream_t stream) {
+  return dispatch_ch(ch, [&](auto c, auto pad) -> int {
+    return bwd_apply<T, decltype(c)::value, decltype(pad)::value>(
+        static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(g),
+        static_cast<const float*>(ws), static_cast<T*>(dq), static_cast<T*>(dk),
+        static_cast<T*>(dv), batch, n_tok, heads, ch, fold, batch_stride, row_stride,
+        g_batch_stride, g_row_stride, scale, stream);
+  });
+}
+
 template <typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const void* g,
                void* dq, void* dk, void* dv, void* ws, int batch, int n_tok,
@@ -760,22 +859,13 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* g,
             static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
             static_cast<const T*>(g), static_cast<float*>(ws), n_tok, heads, ch, chunks,
             batch_stride, row_stride, g_batch_stride, g_row_stride);
-    int err = static_cast<int>(cudaGetLastError());
+    const int err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
-    constexpr int smem = (2 * CH * P::kTPitch + CH * CH + 3 * CH * P::kPitch + 2 * CH) *
-                         static_cast<int>(sizeof(float));
-    auto apply = factorized_attention_bwd_apply_kernel<T, CH, kPad>;
-    if (smem > 48 * 1024) {
-      err = static_cast<int>(
-          cudaFuncSetAttribute(apply, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
-      if (err != 0) return err;
-    }
-    apply<<<dim3(batch * heads, chunks), P::kApplyThreads, smem, stream>>>(
+    return bwd_apply<T, CH, kPad>(
         static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(g),
         static_cast<const float*>(ws), static_cast<T*>(dq), static_cast<T*>(dk),
-        static_cast<T*>(dv), n_tok, heads, ch, chunks, batch_stride, row_stride,
-        g_batch_stride, g_row_stride, scale);
-    return static_cast<int>(cudaGetLastError());
+        static_cast<T*>(dv), batch, n_tok, heads, ch, chunks, batch_stride, row_stride,
+        g_batch_stride, g_row_stride, scale, stream);
   });
 }
 
@@ -836,5 +926,90 @@ extern "C" int mdvit_factorized_attention_workspace(int n_tok, int ch, int grad)
     using B = mdvit::AttnChunk<CH, true>;
     return grad ? (n_tok + B::kRows - 1) / B::kRows * B::kPartial
                 : (n_tok + F::kRows - 1) / F::kRows * F::kPartial;
+  });
+}
+
+// The split launches of context parallelism, each one launch on the stream.
+// fwd_partials / bwd_partials write the partials of this call's n_tok rows
+// into ws (B * heads * mdvit_factorized_attention_workspace(n_tok, ch, grad)
+// floats, the chunks of a (b, h) consecutive); fwd_apply / bwd_apply read
+// `fold` partials a (b, h) from ws (B * heads * fold *
+// mdvit_factorized_attention_partial(ch, grad) floats: every rank's chunks,
+// in rank order) and write this call's rows. Return codes as above.
+extern "C" int mdvit_factorized_attention_fwd_partials(
+    int dtype, const void* k, const void* v, void* ws, int batch, int n_tok, int heads,
+    int ch, long long batch_stride, long long row_stride, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == mdvit::kFloat32)
+    return mdvit::launch_fwd_partials<float>(k, v, ws, batch, n_tok, heads, ch,
+                                             batch_stride, row_stride, s);
+  if (dtype == mdvit::kBFloat16)
+    return mdvit::launch_fwd_partials<__nv_bfloat16>(k, v, ws, batch, n_tok, heads, ch,
+                                                     batch_stride, row_stride, s);
+  return mdvit::kUnsupported;
+}
+
+extern "C" int mdvit_factorized_attention_fwd_apply(
+    int dtype, const void* q, const void* ws, void* out, int batch, int n_tok, int heads,
+    int ch, int fold, long long batch_stride, long long row_stride, float scale,
+    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == mdvit::kFloat32)
+    return mdvit::launch_fwd_apply<float>(q, ws, out, batch, n_tok, heads, ch, fold,
+                                          batch_stride, row_stride, scale, s);
+  if (dtype == mdvit::kBFloat16)
+    return mdvit::launch_fwd_apply<__nv_bfloat16>(q, ws, out, batch, n_tok, heads, ch, fold,
+                                                  batch_stride, row_stride, scale, s);
+  return mdvit::kUnsupported;
+}
+
+extern "C" int mdvit_factorized_attention_bwd_partials(
+    int dtype, const void* q, const void* k, const void* v, const void* g, void* ws,
+    int batch, int n_tok, int heads, int ch, long long batch_stride, long long row_stride,
+    long long g_batch_stride, long long g_row_stride, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == mdvit::kFloat32)
+    return mdvit::launch_bwd_partials<float>(q, k, v, g, ws, batch, n_tok, heads, ch,
+                                             batch_stride, row_stride, g_batch_stride,
+                                             g_row_stride, s);
+  if (dtype == mdvit::kBFloat16)
+    return mdvit::launch_bwd_partials<__nv_bfloat16>(q, k, v, g, ws, batch, n_tok, heads,
+                                                     ch, batch_stride, row_stride,
+                                                     g_batch_stride, g_row_stride, s);
+  return mdvit::kUnsupported;
+}
+
+extern "C" int mdvit_factorized_attention_bwd_apply(
+    int dtype, const void* k, const void* v, const void* g, const void* ws, void* dq,
+    void* dk, void* dv, int batch, int n_tok, int heads, int ch, int fold,
+    long long batch_stride, long long row_stride, long long g_batch_stride,
+    long long g_row_stride, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == mdvit::kFloat32)
+    return mdvit::launch_bwd_apply<float>(k, v, g, ws, dq, dk, dv, batch, n_tok, heads, ch,
+                                          fold, batch_stride, row_stride, g_batch_stride,
+                                          g_row_stride, scale, s);
+  if (dtype == mdvit::kBFloat16)
+    return mdvit::launch_bwd_apply<__nv_bfloat16>(k, v, g, ws, dq, dk, dv, batch, n_tok,
+                                                  heads, ch, fold, batch_stride, row_stride,
+                                                  g_batch_stride, g_row_stride, scale, s);
+  return mdvit::kUnsupported;
+}
+
+// Floats of one (b, h, chunk) partial, AttnChunk<CH, grad>::kPartial, and the
+// token rows of a chunk, AttnChunk<CH, grad>::kRows, with CH the width ch
+// runs at; -1 for a ch outside 1..64. The wrappers hold their mirror of the
+// chunking (ops/factorized_attention.py) to these.
+extern "C" int mdvit_factorized_attention_partial(int ch, int grad) {
+  return mdvit::dispatch_ch(ch, [&](auto c, auto) -> int {
+    constexpr int CH = decltype(c)::value;
+    return grad ? mdvit::AttnChunk<CH, true>::kPartial : mdvit::AttnChunk<CH, false>::kPartial;
+  });
+}
+
+extern "C" int mdvit_factorized_attention_chunk_rows(int ch, int grad) {
+  return mdvit::dispatch_ch(ch, [&](auto c, auto) -> int {
+    constexpr int CH = decltype(c)::value;
+    return grad ? mdvit::AttnChunk<CH, true>::kRows : mdvit::AttnChunk<CH, false>::kRows;
   });
 }

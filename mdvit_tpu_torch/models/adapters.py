@@ -17,6 +17,7 @@ from torch import nn
 
 from mdvit_tpu_torch.ops.layers import Linear
 from mdvit_tpu_torch.ops.norm import NormSpec, make_bn
+from mdvit_tpu_torch.parallel.mesh import spatial_mean
 
 
 class SELayer(nn.Module):
@@ -28,7 +29,7 @@ class SELayer(nn.Module):
         self.with_sigmoid = with_sigmoid
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.fc2(torch.relu(self.fc1(x.mean(dim=(1, 2)))))
+        y = self.fc2(torch.relu(self.fc1(spatial_mean(x))))
         if self.with_sigmoid:
             y = torch.sigmoid(y)
         return y[:, None, None, :]
@@ -54,7 +55,7 @@ class DomainAttention(nn.Module):
         self.num_adapters = num_adapters
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        weight = torch.softmax(self.fc_1(x.mean(dim=(1, 2))).float(), dim=1)  # (B, N)
+        weight = torch.softmax(self.fc_1(spatial_mean(x)).float(), dim=1)  # (B, N)
         mat = torch.stack([getattr(self, f"se{i}")(x)[:, 0, 0, :]
                            for i in range(self.num_adapters)], dim=-1)  # (B, C, N)
         mixed = torch.einsum("bcn,bn->bc", mat, weight.to(mat.dtype))

@@ -39,6 +39,7 @@ from mdvit_tpu_torch.models.decoders import UnetDecodingBlockTransformer
 from mdvit_tpu_torch.ops.layers import Conv2d, ConvBN, DWConvBN
 from mdvit_tpu_torch.ops.norm import NormSpec, make_bn
 from mdvit_tpu_torch.ops.resize import resize_bilinear
+from mdvit_tpu_torch.parallel.mesh import spatial_mean
 
 
 def split_seg(seg: Any) -> Tuple[torch.Tensor, torch.Tensor | None]:
@@ -171,6 +172,9 @@ class BASE(FATEncoderDecoder):
     """BASE, BASE+Sup, BASE_DSN, BASE_DASE and BASE_USE (``base.py:185-236``):
     the trunk plus a 1×1 ``finalconv`` head, no debranch."""
 
+    # what has no row-sharded form (parallel/context.py): nothing
+    context_parallel_gap: str | None = None
+
     def __init__(self, **kw: Any):
         super().__init__(**kw)
         self.finalconv = nn.Sequential(Conv2d(self.embed_dims[0], 1, 1,
@@ -188,7 +192,7 @@ class BASE(FATEncoderDecoder):
             raise ValueError(f"BASE has no debranch: aux_mode {aux_mode!r}")
         encoder_outs, _, dec = self.forward_features(x, domain_onehot, train, gen,
                                                      out_seg)
-        feat = encoder_outs[3].mean(dim=(1, 2)) if out_feat else None
+        feat = spatial_mean(encoder_outs[3]) if out_feat else None
         if not out_seg:
             return {"seg": None, "feat": feat}
         # the 1×1 finalconv commutes with the upsample: conv at H/4, resize 1 channel

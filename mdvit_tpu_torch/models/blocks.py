@@ -18,6 +18,16 @@ branches at ``drop_path``, all drawing from the caller's generator ``gen``.
 Tokens are ``(B, N, C)`` with a static ``size=(H, W)`` grid. The stage owns
 the shared CPE and CRPE and hands them to its blocks at call time, so they
 appear once in the ``state_dict``, under ``mhsa_stages.i.{cpe, crpe}``.
+
+Under context parallelism (``parallel.mesh.current_context()``, either
+mode) the tokens are this rank's rows of the grid, ``size`` its local
+(H/n, W): CPE and CRPE run kernels B and C on the rows plus the
+neighbours' ``k//2`` halo rows (``halo_rows``; CRPE's q, which has
+no halo, zero-padded to v's rows) and keep the middle rows, and
+``FactorAtt`` runs kernel A's partials, an all-gather of them and its apply
+(``factorized_attention_cp``). The backward's halo-row gradients go back to
+their owners through the exchange. The ``state_dict`` is the same in both
+layouts.
 """
 from __future__ import annotations
 
@@ -31,6 +41,7 @@ from mdvit_tpu_torch.ops import dwconv
 from mdvit_tpu_torch.ops import factorized_attention as fa
 from mdvit_tpu_torch.ops.layers import Linear, Mlp, drop_path, fast_dropout
 from mdvit_tpu_torch.ops.norm import make_ln
+from mdvit_tpu_torch.parallel.mesh import current_context, halo_rows
 
 # window size → heads, in channel order (blocks.py DEFAULT_CRPE_WINDOW)
 CRPE_WINDOW = {3: 2, 5: 3, 7: 3}
@@ -47,8 +58,12 @@ class ConvPosEnc(nn.Module):
     def forward(self, x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
         grid = x.to(self.dtype).unflatten(1, size)
         w = self.proj.weight[:, 0].permute(1, 2, 0).to(self.dtype).contiguous()
-        out = dwconv.cpe_conv(grid, w, self.proj.bias.to(self.dtype))
-        return out.flatten(1, 2)
+        ctx = current_context()
+        if ctx is None:
+            return dwconv.cpe_conv(grid, w, self.proj.bias.to(self.dtype)).flatten(1, 2)
+        out = dwconv.cpe_conv(halo_rows(grid, 1, ctx), w,
+                              self.proj.bias.to(self.dtype))
+        return out[:, 1:-1].flatten(1, 2)
 
 
 class ConvRelPosEnc(nn.Module):
@@ -83,9 +98,14 @@ class ConvRelPosEnc(nn.Module):
                 size: Tuple[int, int]) -> torch.Tensor:
         """q, v (B, N, C) tokens, possibly strided views → (B, N, C)."""
         w, b = self.kernel()
-        out = dwconv.crpe_conv(q.to(self.dtype).unflatten(1, size),
-                               v.to(self.dtype).unflatten(1, size), w, b)
-        return out.flatten(1, 2)
+        q, v = q.to(self.dtype).unflatten(1, size), v.to(self.dtype).unflatten(1, size)
+        ctx = current_context()
+        if ctx is None:
+            return dwconv.crpe_conv(q, v, w, b).flatten(1, 2)
+        p = self.max_k // 2
+        out = dwconv.crpe_conv(F.pad(q, (0, 0, 0, 0, p, p)),
+                               halo_rows(v, p, ctx), w, b)
+        return out[:, p:-p].flatten(1, 2)
 
 
 class FactorAtt(nn.Module):
@@ -120,7 +140,12 @@ class FactorAtt(nn.Module):
         ch = c // h
         qkv = self.qkv(x)
         q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
-        out = fa.factorized_attention(q, k, v, ch, ch ** -0.5) + crpe(q, v, size)
+        ctx = current_context()
+        if ctx is None:
+            att = fa.factorized_attention(q, k, v, ch, ch ** -0.5)
+        else:
+            att = fa.factorized_attention_cp(q, k, v, ch, ch ** -0.5, ctx.group)
+        out = att + crpe(q, v, size)
         if self.sup:
             gate = self.domain_layer(domain_onehot.to(out.dtype))
             gate = torch.softmax(gate.reshape(b, h, ch).float(), dim=1)

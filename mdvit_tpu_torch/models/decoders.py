@@ -14,7 +14,7 @@ from mdvit_tpu_torch.models.blocks import MHSAStage
 from mdvit_tpu_torch.ops.layers import (Conv2d, ConvBN, DWConvBN, dropout2d,
                                         fast_dropout)
 from mdvit_tpu_torch.ops.norm import DomainBatchNorm, NormSpec
-from mdvit_tpu_torch.ops.resize import resize_bilinear
+from mdvit_tpu_torch.ops.resize import local_size, resize_bilinear
 
 
 class UnetDecodingBlockTransformer(nn.Module):
@@ -90,7 +90,7 @@ class MLPDecoderFM(nn.Module):
         out = self.linear_fuse[0](torch.cat(outs, dim=-1))
         out = F.relu(self.linear_fuse[1](out, None, train))
         out = dropout2d(out, self.dropout_ratio, train, gen)
-        return resize_bilinear(self.linear_out(out), self.img_size)
+        return resize_bilinear(self.linear_out(out), local_size(self.img_size))
 
 
 class MLPDecoder(MLPDecoderFM):

@@ -40,8 +40,8 @@ from mdvit_tpu_torch.models.blocks import MHSAStage
 from mdvit_tpu_torch.models.decoders import (DeepLabV3Decoder, MLPDecoder, MLPDecoderFM,
                                              UnetDecodingBlockTransformer)
 from mdvit_tpu_torch.ops.layers import Conv2d
-from mdvit_tpu_torch.ops.resize import resize_bilinear
-from mdvit_tpu_torch.parallel.mesh import current_shard, domain_slices, sharded
+from mdvit_tpu_torch.ops.resize import local_size, resize_bilinear
+from mdvit_tpu_torch.parallel.mesh import current_shard, domain_slices, sharded, spatial_mean
 
 DECODERS = ("MLPFM", "MLP", "DeepLabV3", "Transformer")
 
@@ -76,7 +76,7 @@ class TransformerDebranch(nn.Module):
         out = features[-1]
         for n in range(1, 5):
             out = getattr(self, f"decoder{n}")(out, features[4 - n], None, train, gen)
-        return resize_bilinear(self.finalconv(out), self.img_size)
+        return resize_bilinear(self.finalconv(out), local_size(self.img_size))
 
 
 class MDViT(FATEncoderDecoder):
@@ -96,6 +96,9 @@ class MDViT(FATEncoderDecoder):
                          bn_domain_stats=bn_domain_stats, dtype=dtype)
         self.num_domains = num_domains
         self.decoder_name = decoder_name
+        # what has no row-sharded form (parallel/context.py)
+        self.context_parallel_gap = ("MDViT's DeepLabV3 debranch (dilated 3x3 convs, a global "
+                                     "pool)" if decoder_name == "DeepLabV3" else None)
         dims = self.embed_dims
         size = (img_size, img_size)
         self.finalconv = nn.Sequential(Conv2d(dims[0], 1, 1, dtype=dtype))
@@ -125,7 +128,7 @@ class MDViT(FATEncoderDecoder):
             raise ValueError(f"unknown aux_mode {aux_mode!r}")
         encoder_outs, bridge_out, dec = self.forward_features(x, domain_onehot, train, gen,
                                                               out_seg)
-        feat = encoder_outs[3].mean(dim=(1, 2)) if out_feat else None
+        feat = spatial_mean(encoder_outs[3]) if out_feat else None
         if not out_seg:
             return {"seg": None, "feat": feat}
         # the 1×1 finalconv commutes with the upsample: conv at H/4, resize 1 channel

@@ -156,6 +156,20 @@ _ARGTYPES = {
         [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
         + [ctypes.c_longlong] * 4 + [ctypes.c_float, ctypes.c_void_p]),
     "mdvit_factorized_attention_workspace": [ctypes.c_int] * 3,
+    "mdvit_factorized_attention_partial": [ctypes.c_int] * 2,
+    "mdvit_factorized_attention_chunk_rows": [ctypes.c_int] * 2,
+    "mdvit_factorized_attention_fwd_partials": (
+        [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+        + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]),
+    "mdvit_factorized_attention_fwd_apply": (
+        [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+        + [ctypes.c_longlong] * 2 + [ctypes.c_float, ctypes.c_void_p]),
+    "mdvit_factorized_attention_bwd_partials": (
+        [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+        + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]),
+    "mdvit_factorized_attention_bwd_apply": (
+        [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+        + [ctypes.c_longlong] * 4 + [ctypes.c_float, ctypes.c_void_p]),
     "mdvit_cpe_conv_bwd": (
         [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
         + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_int, ctypes.c_void_p]),

@@ -11,6 +11,17 @@ seed gives the same masks on the CPU and on a card. JAX's threefry stream
 itself cannot be matched. Under data parallelism a rank hashes the global
 counters of its rows (``parallel.mesh.current_shard().row0`` rows in), so
 its masks are its rows of the unsharded batch's.
+
+Under context parallelism (``parallel.mesh.current_context()``) an element
+mask (``fast_dropout``) of a tensor whose axis 1 is row-sharded (tokens or
+grid rows) follows JAX: in ``"stage"`` mode the shard index is folded into
+the seed, ``seed ^ (index · 0x9E3779B9)``, over local counters (JAX's
+``FastDropout(axis_name=...)``); in ``"e2e"`` mode the counters are the
+unsharded tensor's, sample b, global row ``index·rows + r``, so the masks
+are the unsharded step's rows (JAX's GSPMD path). Per-sample masks
+(DropPath, Dropout2d) are the same on every shard. ``Conv2d`` with a
+window of more than one row exchanges ``padding`` halo rows with its
+neighbours in ``"e2e"`` mode and pads only W.
 """
 from __future__ import annotations
 
@@ -21,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mdvit_tpu_torch.ops.norm import NormSpec, make_bn
-from mdvit_tpu_torch.parallel.mesh import current_shard
+from mdvit_tpu_torch.parallel.mesh import current_context, current_shard, halo_rows
 
 # Minimax fit of (b, a) in 0.5·x·(1+tanh(b(x+ax³))) to the exact erf GELU
 # x·Φ(x) over [0, 10] (the JAX package's bf16 GELU); max |err| 2.7e-4.
@@ -64,18 +75,20 @@ def hash_u32(x: torch.Tensor) -> torch.Tensor:
 
 
 def fast_uniform(seed: int | torch.Tensor, shape, device: torch.device | str = "cpu",
-                 offset: int = 0, first: int = 0) -> torch.Tensor:
+                 offset: int = 0, first: int = 0,
+                 counters: torch.Tensor | None = None) -> torch.Tensor:
     """U[0, 1) fp32 of ``shape`` from hashed row-major element counters,
     bit-equal to ``mdvit_tpu/data/augment.py:fast_uniform``. ``seed`` is a
     host int (dropout) or a 0-d int64 tensor on ``device`` (the augmentation
     noise, drawn on the device); ``offset`` picks an independent stream;
     ``first`` is the first element's counter (a rank's slice of a larger
-    array)."""
-    n = 1
-    for s in shape:
-        n *= int(s)
-    idx = torch.arange(first, first + n, dtype=torch.int64,
-                       device=device).reshape(tuple(shape))
+    array); ``counters`` (int64, of ``shape``) replaces the row-major ones."""
+    if counters is not None:
+        idx = counters
+    else:
+        n = math.prod(int(s) for s in shape)
+        idx = torch.arange(first, first + n, dtype=torch.int64,
+                           device=device).reshape(tuple(shape))
     mix = (offset * 0x85EBCA6B) & _U32
     if isinstance(seed, torch.Tensor):
         base = _mul_u32(seed.to(torch.int64) & _U32, 0x9E3779B9)
@@ -103,12 +116,34 @@ def draw_seed(gen: torch.Generator | None) -> int:
     return int(torch.randint(0, 1 << 32, (), dtype=torch.int64, generator=gen))
 
 
-def _keep_mask(keep: float, shape, gen, like: torch.Tensor) -> torch.Tensor:
+def _row_block_counters(shape, row0: int, ctx, device) -> torch.Tensor:
+    """Counters of a (B, A, ...) block whose axis 1 is this rank's rows of an
+    unsharded (total batch, A·size, ...) tensor: sample row0 + b, row
+    index·A + a."""
+    b, a = int(shape[0]), int(shape[1])
+    inner = math.prod(int(s) for s in shape[2:])
+    per_sample = a * ctx.size * inner
+    ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)  # noqa: E731
+    idx = ((row0 + ar(b)) * per_sample)[:, None, None] \
+        + ((ctx.index * a + ar(a)) * inner)[None, :, None] + ar(inner)[None, None, :]
+    return idx.reshape(tuple(shape))
+
+
+def _keep_mask(keep: float, shape, gen, like: torch.Tensor,
+               rows: bool = False) -> torch.Tensor:
     """Bernoulli(keep) bools of ``shape`` (rows first), drawn on ``like``'s
-    device at the counters of the current shard's rows."""
-    per_row = math.prod(shape[1:])
-    first = current_shard().row0 * per_row
-    return fast_uniform(draw_seed(gen), shape, device=like.device, first=first) < keep
+    device at the counters of the current shard's rows; ``rows``: axis 1 is
+    row-sharded under context parallelism (module docstring)."""
+    seed = draw_seed(gen)
+    row0 = current_shard().row0
+    ctx = current_context() if rows else None
+    if ctx is not None and ctx.mode == "e2e":
+        counters = _row_block_counters(shape, row0, ctx, like.device)
+        return fast_uniform(seed, shape, device=like.device, counters=counters) < keep
+    if ctx is not None:
+        seed ^= (ctx.index * 0x9E3779B9) & _U32
+    first = row0 * math.prod(shape[1:])
+    return fast_uniform(seed, shape, device=like.device, first=first) < keep
 
 
 def drop_path(x: torch.Tensor, rate: float, train: bool, gen) -> torch.Tensor:
@@ -136,7 +171,7 @@ def fast_dropout(x: torch.Tensor, rate: float, train: bool, gen) -> torch.Tensor
     if rate == 0.0 or not train:
         return x
     keep = 1.0 - rate
-    mask = _keep_mask(keep, x.shape, gen, x)
+    mask = _keep_mask(keep, x.shape, gen, x, rows=x.dim() >= 3)
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -177,8 +212,19 @@ class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), bias,
-                     self.stride, self.padding, self.dilation, self.groups)
+        x, padding = x.to(dt), self.padding
+        ctx = current_context()
+        if ctx is not None and ctx.mode == "e2e" and self.kernel_size[0] > 1:
+            # row-sharded: the neighbours' rows replace the row padding (stride
+            # s reads rows s·o − p .. of the rank's rows, s | local rows)
+            if self.dilation[0] * (self.kernel_size[0] - 1) != 2 * padding[0] \
+                    or x.shape[1] % self.stride[0]:
+                raise NotImplementedError("a row-sharded conv needs SAME row padding "
+                                          "and local rows divisible by the stride")
+            x = halo_rows(x, padding[0], ctx)
+            padding = (0, padding[1])
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(dt), bias,
+                     self.stride, padding, self.dilation, self.groups)
         return y.permute(0, 2, 3, 1)
 
 

@@ -9,6 +9,13 @@ s = o·(in−1)/(out−1) (UTNet's and TransFuse's upsamples), over H and then
 over W, as JAX does. The backward is two products too: ``F.interpolate``'s
 CUDA backward accumulates with atomics, so its bits move from run to run,
 and ``torch.use_deterministic_algorithms`` refuses it.
+
+Under an end-to-end row shard (``parallel.mesh.current_context()``, mode
+``"e2e"``) ``resize_bilinear``'s H axis is this rank's block of rows of
+grids of ``size`` times the ctx ranks: each rank takes, as a halo, the input
+rows its output rows reach, and applies its rows of the global row matrix
+restricted to them; ``local_size`` turns a global target size into the
+rank's.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import numpy as np
 import torch
 
 from mdvit_tpu_torch.ops.layers import device_constant
+from mdvit_tpu_torch.parallel.mesh import current_context, halo_rows
 
 
 def resize_matrix(in_size: int, out_size: int) -> np.ndarray:
@@ -63,6 +71,45 @@ def _matrix(in_size: int, out_size: int, device: torch.device,
                            lambda: make(in_size, out_size), device)
 
 
+def _row_block_matrix(in_rows: int, out_rows: int, n: int, index: int):
+    """(halo, M) of rank ``index`` of ``n`` resizing its ``in_rows`` rows of a
+    grid of in_rows·n to its ``out_rows`` of out_rows·n: the halo every rank
+    needs (the largest reach outside its own input block), and the rank's
+    (out_rows, in_rows + 2·halo) rows of the global matrix over its halo'd
+    input rows (zero columns past the global edges)."""
+    m = resize_matrix(in_rows * n, out_rows * n)
+    halo = 0
+    for r in range(n):
+        cols = np.nonzero(m[r * out_rows:(r + 1) * out_rows].any(axis=0))[0]
+        halo = max(halo, r * in_rows - int(cols.min()), int(cols.max()) - ((r + 1) * in_rows - 1))
+    padded = np.pad(m, ((0, 0), (halo, halo)))
+    lo = index * in_rows
+    return halo, np.ascontiguousarray(
+        padded[index * out_rows:(index + 1) * out_rows, lo:lo + in_rows + 2 * halo])
+
+
+def local_size(size: Sequence[int]) -> tuple[int, int]:
+    """A global (H, W) target as this rank's (H / ctx ranks, W) under an
+    end-to-end row shard; as it is otherwise."""
+    ctx = current_context()
+    h, w = int(size[0]), int(size[1])
+    if ctx is None or ctx.mode != "e2e":
+        return h, w
+    if h % ctx.size:
+        raise ValueError(f"{h} rows do not split over {ctx.size} ctx ranks")
+    return h // ctx.size, w
+
+
+def _resize_rows_sharded(y: torch.Tensor, h: int, ctx) -> torch.Tensor:
+    """The H pass of ``resize_bilinear`` on this rank's rows (fp32 (B, H_in,
+    W, C) → (B, h, W, C))."""
+    b, hi, w, c = y.shape
+    halo, m = _row_block_matrix(hi, h, ctx.size, ctx.index)
+    mat = device_constant(("resize_rows", hi, h, ctx.size, ctx.index), lambda: m, y.device)
+    y = halo_rows(y, halo, ctx)
+    return (mat @ y.reshape(b, hi + 2 * halo, w * c)).reshape(b, h, w, c)
+
+
 def resize_bilinear(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
     """Resize NHWC ``(B, H, W, C)`` to ``(B, size[0], size[1], C)`` in fp32,
     no antialiasing; returns ``x`` itself when the size already matches."""
@@ -73,7 +120,10 @@ def resize_bilinear(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
     y = x.float()
     if wi != w:  # (W_out, W_in) @ (B·H, W_in, C)
         y = (_matrix(wi, w, x.device) @ y.reshape(b * hi, wi, c)).reshape(b, hi, w, c)
-    if hi != h:  # (H_out, H_in) @ (B, H_in, W·C)
+    ctx = current_context()
+    if hi != h and ctx is not None and ctx.mode == "e2e":
+        y = _resize_rows_sharded(y, h, ctx)
+    elif hi != h:  # (H_out, H_in) @ (B, H_in, W·C)
         y = (_matrix(hi, h, x.device) @ y.reshape(b, hi, w * c)).reshape(b, h, w, c)
     return y.to(x.dtype)
 

@@ -1,0 +1,279 @@
+"""Context (sequence) parallelism over ``torch.distributed``, the port of
+``mdvit_tpu/parallel/context.py``.
+
+Each rank of a ctx group holds a block of rows of every token grid, in rank
+order. The factorized attention's only couplings across tokens are the
+column softmax and KᵀV: kernels A and A′ write per-chunk partials of both
+into a workspace, an all-gather of that workspace runs between their two
+launches, and every rank's apply folds all ranks' partials in rank order
+(``ops/factorized_attention.py``). The depthwise convs of CPE and CRPE
+(kernels B–C′) run on the rank's rows plus ``k//2`` halo rows from its
+neighbours (``halo_exchange_rows``), with the global top and bottom getting
+zeros, as the unsharded grid's zero padding gives them; their weight
+gradients are rank-partial sums that the gradient all-reduce adds. The
+layers reach those row-shard collectives in ``parallel/mesh.py``; this
+module holds the entry points above the models.
+
+Two paths, as in JAX:
+
+* stage level (``stage_apply_context_parallel``): one ``MHSAStage`` with its
+  tokens sharded by rows (JAX's ``shard_map`` path). Dropout folds the
+  shard index into its seed over local counters; DropPath keeps one
+  per-sample mask on every shard.
+* end to end (``model_apply_context_parallel``,
+  ``make_context_parallel_train_step``): BASE's and MDViT's whole forward
+  with the image rows sharded (JAX's GSPMD path). The convs exchange
+  ``(k−1)//2`` halo rows and pad only W, the BatchNorms sum their moments
+  over every rank of the grid, resizes take the input rows their output rows
+  need as a halo, spatial means are summed over the ctx group, and dropout
+  hashes the unsharded step's counters, so the masks are the unsharded
+  masks' rows.
+
+The (data, ctx) grid (``make_dp_context_mesh``) composes both: rank r sits
+at (r // n_ctx, r % n_ctx); its ctx group is its grid row, its data group
+its column, and the batch's sums (BN moments, loss terms, gradients) run
+over the whole grid.
+
+Port narrowing: JAX's GSPMD pads uneven shards; here every grid's rows must
+split evenly, H % (total stride · n_ctx) == 0 (256² at n ≤ 8, 512² at
+n ≤ 16).
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Iterator, NamedTuple
+
+import torch
+import torch.distributed as dist
+
+from mdvit_tpu_torch.device import deterministic, no_tf32
+from mdvit_tpu_torch.models.base import split_seg
+from mdvit_tpu_torch.parallel.mesh import (RowShard, Shard, all_reduce_sum, gather_rows,
+                                           row_sharded, sharded)
+from mdvit_tpu_torch.train.losses import seg_loss_from_sums, seg_loss_sums
+
+# total stem + patch-embed downsampling to the deepest (bridge) grid of
+# BASE and MDViT: the stem /4, three strided embeds /2 each
+BASE_TOTAL_STRIDE = 32
+
+
+# ---------------------------------------------------------------- meshes
+
+
+class ContextMesh(NamedTuple):
+    """This rank's place in a (data, ctx) grid of ``n_data · n_ctx`` ranks:
+    ``ctx`` the group of its grid row (the ranks that split one batch's
+    rows), ``data`` that of its column, ``grid`` all the grid's ranks (the
+    batch's sums); ``dp`` whether the grid has a data axis (JAX's mesh with
+    a ``"data"`` axis name)."""
+
+    ctx: Any
+    data: Any
+    grid: Any
+    ctx_index: int
+    data_index: int
+    n_ctx: int
+    n_data: int
+    dp: bool = False
+
+
+def _new_group(ranks: list[int], world: int) -> Any:
+    return dist.group.WORLD if len(ranks) == world else dist.new_group(ranks)
+
+
+def make_dp_context_mesh(n_data: int, n_ctx: int) -> ContextMesh:
+    """A 2-D (data, ctx) grid over the first ``n_data · n_ctx`` ranks: the
+    batch split over ``data``, the image rows over ``ctx``. Every rank of the
+    world must call it (``new_group`` is collective): it makes the group of
+    every row, then of every column, then the grid's, in that order."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    need = n_data * n_ctx
+    if need > world:
+        raise ValueError(f"requested a {n_data}x{n_ctx} mesh but only {world} ranks "
+                         "are in the process group")
+    rows = [_new_group([d * n_ctx + c for c in range(n_ctx)], world) for d in range(n_data)]
+    cols = [_new_group([d * n_ctx + c for d in range(n_data)], world) for c in range(n_ctx)]
+    grid = _new_group(list(range(need)), world)
+    if rank >= need:
+        raise ValueError(f"rank {rank} is outside the {n_data}x{n_ctx} grid")
+    d, c = divmod(rank, n_ctx)
+    return ContextMesh(rows[d], cols[c], grid, c, d, n_ctx, n_data, dp=True)
+
+
+def make_context_mesh(n: int | None = None) -> ContextMesh:
+    """A 1-D mesh over the rows: the first ``n`` ranks (all, when None) split
+    every grid's rows; no data axis."""
+    n = dist.get_world_size() if n is None else n
+    mesh = make_dp_context_mesh(1, n)
+    return mesh._replace(dp=False)
+
+
+def _as_mesh(group: Any) -> ContextMesh:
+    """A ``ContextMesh`` as it is; a process group as a 1-D mesh over it;
+    None as no mesh (one process, nothing sharded)."""
+    if isinstance(group, ContextMesh):
+        return group
+    if group is None:
+        return ContextMesh(None, None, None, 0, 0, 1, 1)
+    n, i = dist.get_world_size(group), dist.get_rank(group)
+    return ContextMesh(group, None, group, i, 0, n, 1)
+
+
+# ---------------------------------------------------------------- stage level
+
+
+def stage_apply_context_parallel(stage, x: torch.Tensor, size, group: Any,
+                                 domain_onehot: torch.Tensor | None = None,
+                                 train: bool = False,
+                                 gen: torch.Generator | None = None) -> torch.Tensor:
+    """Run an ``MHSAStage`` with its (B, H·W, C) tokens row-sharded over
+    ``group``: each rank runs its H/n rows of ``x`` (the whole token tensor,
+    the same on every rank) and the result is the whole (B, H·W, C) output,
+    gathered (differentiable; each rank's gradient flows back through its own
+    rows). The parameters are the unsharded stage's, so one checkpoint
+    serves both layouts."""
+    h, w = size
+    n, idx = dist.get_world_size(group), dist.get_rank(group)
+    if h % n:
+        raise ValueError(f"grid height {h} not divisible by {n} shards")
+    b, ntok, c = x.shape
+    if ntok != h * w:
+        raise ValueError(f"{ntok} tokens are not a {h}x{w} grid")
+    h_loc = h // n
+    tokens = x.reshape(b, h, w, c)[:, idx * h_loc:(idx + 1) * h_loc].reshape(b, h_loc * w, c)
+    with row_sharded(RowShard(group, idx, n, "stage")):
+        out = stage(tokens, (h_loc, w), domain_onehot, train, gen)
+    return gather_rows(out.reshape(b, h_loc, w, c), group).reshape(b, ntok, c)
+
+
+# ---------------------------------------------------------------- end to end
+
+
+def _check_model(model) -> None:
+    """Raise unless every layer of ``model`` has its row-sharded form. A model
+    says so itself: its ``context_parallel_gap`` names what has none (None:
+    nothing; BASE and its family, MDViT). A model without the attribute has
+    not been ported to row shards."""
+    gap = getattr(model, "context_parallel_gap", type(model).__name__)
+    if gap is not None:
+        raise NotImplementedError(f"context parallelism of {gap} is not ported "
+                                  "(BASE, its family and MDViT are)")
+
+
+def _check_min_grid(model, shape, mesh: ContextMesh) -> None:
+    """JAX's two guards, with their words, and the port's even-rows rule."""
+    n_ctx = mesh.n_ctx
+    stride = getattr(model, "total_stride", BASE_TOTAL_STRIDE)
+    min_grid = shape[1] // stride
+    if min_grid < n_ctx:
+        raise ValueError(
+            f"context parallelism needs every sharded grid dim >= the ctx axis ({n_ctx}); "
+            f"input H={shape[1]} reaches a {min_grid}x{min_grid} deepest grid (total "
+            f"stride {stride}); use img_size >= {stride * n_ctx} or a smaller ctx axis")
+    if shape[1] % (stride * n_ctx):
+        raise ValueError(
+            f"context parallelism here splits every grid's rows evenly over the ctx axis "
+            f"({n_ctx}): input H={shape[1]} is not a multiple of {stride * n_ctx} (total "
+            f"stride {stride} x ctx)")
+    if mesh.dp:
+        n_data = mesh.n_data
+        if shape[0] % n_data:
+            raise ValueError(f"batch {shape[0]} not divisible by the data axis ({n_data})")
+        if (shape[0] // n_data) * (min_grid // n_ctx) < 2:
+            raise ValueError(
+                f"DP x CP composed mesh needs >= 2 samples-or-rows per shard at the "
+                f"deepest grid: batch/data = {shape[0] // n_data}, grid/ctx = "
+                f"{min_grid // n_ctx} (JAX's SPMD miscompiles the 1x1-tile case; the "
+                "port keeps its guard). Grow the batch, the image, or shrink the mesh.")
+
+
+@contextlib.contextmanager
+def _e2e(mesh: ContextMesh, batch: int) -> Iterator[tuple[int, int]]:
+    """The end-to-end shard of a ``batch``-row global batch: the batch's sums
+    over the grid, this rank's batch rows and image rows. Yields (first
+    batch row, batch rows)."""
+    per = batch // mesh.n_data
+    row0 = mesh.data_index * per
+    grid = mesh.grid if mesh.n_ctx * mesh.n_data > 1 else None
+    rows = None if mesh.ctx is None else RowShard(mesh.ctx, mesh.ctx_index, mesh.n_ctx, "e2e")
+    with sharded(Shard(grid, row0, batch)), row_sharded(rows):
+        yield row0, per
+
+
+def _local(t: torch.Tensor, mesh: ContextMesh, row0: int, per: int) -> torch.Tensor:
+    """This rank's batch rows and image rows of a global (B, H, ...) tensor."""
+    h_loc = t.shape[1] // mesh.n_ctx
+    return t[row0:row0 + per, mesh.ctx_index * h_loc:(mesh.ctx_index + 1) * h_loc]
+
+
+def _gather_out(t: torch.Tensor, mesh: ContextMesh) -> torch.Tensor:
+    t = gather_rows(t, mesh.ctx if mesh.n_ctx > 1 else None, dim=1)
+    return gather_rows(t, mesh.data if mesh.n_data > 1 else None, dim=0)
+
+
+def model_apply_context_parallel(model, x: torch.Tensor, domain_onehot: torch.Tensor,
+                                 group: Any, train: bool = False,
+                                 gen: torch.Generator | None = None, **kwargs) -> dict:
+    """The whole model's forward with the image rows (and, on a DP×CP grid,
+    the batch) of the global (B, H, W, 3) ``x`` sharded over ``group`` (a
+    process group: a 1-D ctx mesh; or a ``ContextMesh``). Every rank passes
+    the same ``x``; the outputs are gathered, the same on every rank:
+    ``seg`` (B, H, W, 1) (MDViT: the (logits, aux) pair) and ``feat``."""
+    mesh = _as_mesh(group)
+    _check_model(model)
+    _check_min_grid(model, x.shape, mesh)
+    with _e2e(mesh, x.shape[0]) as (row0, per):
+        out = model(_local(x, mesh, row0, per), domain_onehot[row0:row0 + per], train=train,
+                    gen=gen, **kwargs)
+    res = dict(out)
+    seg = out.get("seg")
+    if isinstance(seg, tuple):
+        res["seg"] = tuple(None if s is None else _gather_out(s, mesh) for s in seg)
+    elif seg is not None:
+        res["seg"] = _gather_out(seg, mesh)
+    if out.get("feat") is not None:
+        res["feat"] = gather_rows(out["feat"], mesh.data if mesh.n_data > 1 else None, dim=0)
+    return res
+
+
+def make_context_parallel_train_step(model, optimizer, group: Any):
+    """``step(x, y, onehot, gen) → loss``: one single-loss (BASE-family) train
+    step with the image rows of the global batch sharded over ``group`` (a
+    process group or a ``ContextMesh``), every rank passing the same global
+    (B, H, W, 3) ``x``, (B, H, W, 1) ``y`` and (B, D) one-hot, and a CPU
+    generator in the same state. The loss is BCE + squared-denominator dice
+    from the logits (``seg_loss_from_logits``), formed from its terms summed
+    over the grid; one backward pull; the gradients are summed over the grid
+    in one flat buffer (each rank's pull holds the gradient through its rows,
+    scaled by the grid's size: the sums' backward adds the ranks' identical
+    upstream gradients) and divided by its size; then ``optimizer.step()``.
+    The BatchNorms' running stats take the grid's moments, the same on every
+    rank. Returns the loss, the same on every rank."""
+    mesh = _as_mesh(group)
+    _check_model(model)
+    params = list(model.parameters())
+    size = mesh.n_ctx * mesh.n_data
+
+    @no_tf32()
+    @deterministic()
+    def step(x: torch.Tensor, y: torch.Tensor, onehot: torch.Tensor,
+             gen: torch.Generator | None = None) -> torch.Tensor:
+        _check_min_grid(model, x.shape, mesh)
+        with _e2e(mesh, x.shape[0]) as (row0, per):
+            out = model(_local(x, mesh, row0, per), onehot[row0:row0 + per], train=True,
+                        gen=gen)
+            logits = split_seg(out["seg"])[0]
+            sums = seg_loss_sums(logits, _local(y, mesh, row0, per))
+            loss = seg_loss_from_sums(all_reduce_sum(sums, mesh.grid if size > 1 else None))
+        grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
+        if size > 1:
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(flat, group=mesh.grid)
+            grads = [part.view_as(g) for part, g in
+                     zip(flat.div_(size).split([g.numel() for g in grads]), grads)]
+        for p, g in zip(params, grads):
+            p.grad = g
+        optimizer.step()
+        return loss.detach()
+
+    return step

@@ -16,6 +16,15 @@ the global row of the rank's first row and the rows of the global batch.
 Dropout and the augmentation hash global row counters from it, so a rank
 draws its rows of the masks the unsharded step draws. Outside ``sharded``
 the shard is the whole batch on one process and nothing is reduced.
+
+Context parallelism (``parallel/context.py``) shards the rows of the token
+grids instead: ``current_context()`` is the ``RowShard`` that
+``row_sharded`` sets, read by the layers that couple rows (the depthwise
+convs' halos, the factorized attention's softmax and KᵀV, dropout's
+counters, spatial means, resizes and convs in the end-to-end path). The
+row-shard collectives those layers call live here too: the halo exchange
+(``halo_exchange_rows``, ``halo_rows``), ``gather_rows`` and
+``spatial_mean``.
 """
 from __future__ import annotations
 
@@ -176,3 +185,154 @@ def sharded(shard: Shard) -> Iterator[None]:
 
 def current_shard() -> Shard:
     return _shard
+
+
+class RowShard(NamedTuple):
+    """This rank's block of rows of every token grid under context
+    parallelism: ``group`` the ctx group, ``index`` the rank's place in it
+    (its rows come ``index``-th), ``size`` the group's ranks, ``mode``
+    ``"stage"`` (one ``MHSAStage`` sharded; dropout folds ``index`` into its
+    seed over local counters, as JAX's ``shard_map`` path does) or ``"e2e"``
+    (the whole model; dropout hashes the unsharded masks' global counters).
+    Every grid splits evenly, so a grid of ``h`` local rows starts at global
+    row ``index · h``."""
+
+    group: Any
+    index: int
+    size: int
+    mode: str = "stage"
+
+
+_context: RowShard | None = None
+
+
+@contextlib.contextmanager
+def row_sharded(ctx: RowShard | None) -> Iterator[None]:
+    """``current_context()`` is ``ctx`` inside (None: no row sharding)."""
+    global _context
+    outer, _context = _context, ctx
+    try:
+        yield
+    finally:
+        _context = outer
+
+
+def current_context() -> RowShard | None:
+    return _context
+
+
+# ---------------------------------------------------------------- row shards
+
+
+def _gather(t: torch.Tensor, group: Any) -> list[torch.Tensor]:
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return parts
+
+
+class _HaloRows(torch.autograd.Function):
+    """Forward: each rank's first and last ``halo`` rows to its neighbours
+    (one all-gather of every rank's two edges; gloo takes CUDA tensors in
+    collectives, not in point-to-point calls). Backward: the gradient of each
+    halo row goes back to the rank that owns the row and is added there."""
+
+    @staticmethod
+    def forward(ctx, x, halo, group, index, size):
+        ctx.halo, ctx.group, ctx.index, ctx.size = halo, group, index, size
+        edges = _gather(torch.stack([x[:, :halo], x[:, -halo:]]), group)
+        zeros = torch.zeros_like(x[:, :halo])
+        above = edges[index - 1][1] if index > 0 else zeros
+        below = edges[index + 1][0] if index < size - 1 else zeros
+        return torch.cat([above, x, below], dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, i, n = ctx.halo, ctx.index, ctx.size
+        edges = _gather(torch.stack([g[:, :h], g[:, -h:]]), ctx.group)
+        dx = g[:, h:-h].clone()
+        if i < n - 1:  # the next rank's rows above it are my last rows
+            dx[:, -h:] += edges[i + 1][0]
+        if i > 0:      # the previous rank's rows below it are my first rows
+            dx[:, :h] += edges[i - 1][1]
+        return dx, None, None, None, None
+
+
+def halo_exchange_rows(x: torch.Tensor, halo: int, group: Any) -> torch.Tensor:
+    """This rank's (B, H_loc, W, C) rows of a global grid laid out in rank
+    order over ``group`` → (B, H_loc + 2·halo, W, C): ``halo`` rows of the
+    neighbours above and below, zeros past the global top and bottom (the
+    zero padding a full-grid conv would see). Differentiable."""
+    if halo == 0:
+        return x
+    if x.shape[1] < halo:
+        raise ValueError(f"context-parallel halo {halo} exceeds the {x.shape[1]} local "
+                         "rows per shard; use fewer shards or taller inputs")
+    return _HaloRows.apply(x, halo, group, dist.get_rank(group), dist.get_world_size(group))
+
+
+class _HaloFromGrid(torch.autograd.Function):
+    """``halo`` rows around this rank's block when they reach past its
+    neighbours (deep grids of the end-to-end path, fewer local rows than the
+    halo): the whole grid gathered, zero-padded and cut; the backward adds
+    every rank's halo'd gradient into the padded grid (one all-reduce) and
+    keeps this rank's rows."""
+
+    @staticmethod
+    def forward(ctx, x, halo, group, index):
+        ctx.halo, ctx.group, ctx.index, ctx.rows = halo, group, index, x.shape[1]
+        grid = torch.cat(_gather(x, group), dim=1)
+        padded = torch.nn.functional.pad(grid, (0, 0, 0, 0, halo, halo))
+        r0 = index * x.shape[1]
+        return padded[:, r0:r0 + x.shape[1] + 2 * halo].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        h, rows = ctx.halo, ctx.rows
+        r0 = ctx.index * rows
+        n = dist.get_world_size(ctx.group)
+        full = g.new_zeros((g.shape[0], rows * n + 2 * h) + tuple(g.shape[2:]))
+        full[:, r0:r0 + rows + 2 * h] = g
+        dist.all_reduce(full, group=ctx.group)
+        return full[:, h + r0:h + r0 + rows], None, None, None
+
+
+def halo_rows(x: torch.Tensor, halo: int, ctx: RowShard) -> torch.Tensor:
+    """``halo_exchange_rows`` over the row shard's group; in ``"e2e"`` mode
+    also where the halo reaches past the neighbours (``halo`` above the local
+    rows), as GSPMD's halos do in JAX."""
+    if ctx.mode == "e2e" and 0 < x.shape[1] < halo:
+        return _HaloFromGrid.apply(x, halo, ctx.group, ctx.index)
+    return halo_exchange_rows(x, halo, ctx.group)
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every rank's rows, concatenated on axis ``dim``; the backward takes this
+    rank's rows of the gradient (each rank holds the same function of the
+    whole, as JAX's replicated output)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.index, ctx.rows, ctx.dim = dist.get_rank(group), x.shape[dim], dim
+        return torch.cat(_gather(x, group), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.rows, ctx.rows), None, None
+
+
+def gather_rows(x: torch.Tensor, group: Any, dim: int = 1) -> torch.Tensor:
+    """The whole of a tensor whose axis ``dim`` is split over ``group`` in rank
+    order; ``x`` itself without a group."""
+    if group is None:
+        return x
+    return _GatherRows.apply(x, group, dim)
+
+
+def spatial_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean of (B, H, W, C) over H and W; under an end-to-end row shard, over
+    the whole grid (the ranks' sums added)."""
+    ctx = current_context()
+    if ctx is None or ctx.mode != "e2e":
+        return x.mean(dim=(1, 2))
+    total = x.shape[1] * x.shape[2] * ctx.size
+    return all_reduce_sum(x.float().sum(dim=(1, 2)), ctx.group).div(total).to(x.dtype)

@@ -233,26 +233,16 @@ def test_fp32_serving_forward_runs_without_tf32_on_card():
 
 
 # the width buckets of the factorized-attention kernels (``dispatch_ch`` in
-# factorized_attention.cu): a head of width ch runs in the first bucket
-# CH >= ch, its columns past ch staged as zeros (MDViT's 8, 16, 40 and 64 in
-# instances of their own, with the same chunk rows)
-ATTN_BUCKETS = (8, 12, 16, 20, 24, 28, 32, 36, 40, 48, 64)
-
-
-def attn_bucket(ch: int) -> int:
-    return next(b for b in ATTN_BUCKETS if b >= ch)
-
-
-# token rows of a chunk of the factorized-attention kernels by width bucket,
-# as ``AttnChunk<CH, kGrad>::kRows`` in factorized_attention.cu cuts them: the
-# backward's, and the forward's (it stages two inputs, not four, and takes
-# twice the rows at ch 64). The library sizes the workspace itself
-# (``mdvit_factorized_attention_workspace``); these set the chunks of the
-# plain-torch emulations in the CPU tests, and
-# ``test_attention_workspace_matches_chunk_rows_on_card`` holds them to it.
-ATTN_CHUNK_ROWS = {8: 256, 12: 192, 16: 128, 20: 128, 24: 96, 28: 80, 32: 64, 36: 64,
-                   40: 64, 48: 48, 64: 32}
-ATTN_FWD_CHUNK_ROWS = {**ATTN_CHUNK_ROWS, 64: 64}
+# factorized_attention.cu: a head of width ch runs in the first bucket
+# CH >= ch, its columns past ch staged as zeros) and the token rows of a
+# chunk by bucket (``AttnChunk<CH, kGrad>::kRows``), as the wrapper's mirror
+# has them; they set the chunks of the plain split versions, and
+# ``test_attention_workspace_matches_chunk_rows_on_card`` holds them to the
+# library
+ATTN_BUCKETS = fa.ATTN_BUCKETS
+attn_bucket = fa.attn_bucket
+ATTN_CHUNK_ROWS = fa.ATTN_CHUNK_ROWS
+ATTN_FWD_CHUNK_ROWS = fa.ATTN_FWD_CHUNK_ROWS
 # The factorized-attention kernels' chunked split, (B, N, C, ch, k scale): N
 # ragged against the chunk rows (``ATTN_CHUNK_ROWS``, ``ATTN_FWD_CHUNK_ROWS``),
 # k ×20 so that the column maxima fall in different
@@ -729,3 +719,126 @@ def test_ops_on_no_rows_launch_nothing_on_card(name):
     assert kernels.LAUNCHES[name] == 0
     for t in (out if isinstance(out, tuple) else (out,)):
         assert t.shape[0] == 0 or not t.any()
+
+
+# ---------------------------------------------------------------- context parallelism
+
+# (B, H·W, C, ch) split in row halves: the MDViT stages at 256², and BASE's
+# four grids at 512², B=2, whose halves a rank of the 2-rank CP step sends
+# A and A′ (up to 64 chunks folded a (b, h))
+CP_STAGES = [(4, 4096, 64, 8), (4, 1024, 128, 16), (4, 256, 320, 40), (4, 64, 512, 64),
+             (2, 16384, 64, 8), (2, 4096, 128, 16), (2, 1024, 320, 40), (2, 256, 512, 64)]
+
+
+def _split_attention(q, k, v, g, ch):
+    """A and A′ as two ranks run them: each half's partials, the workspaces
+    concatenated a (b, h) in rank order (the all-gather), each half's apply."""
+    ops = torch.ops.mdvit
+    scale = ch ** -0.5
+    n = q.shape[1]
+    rows = [slice(0, n // 2), slice(n // 2, n)]
+    ws = torch.cat([ops.factorized_attention_partials(k[:, r], v[:, r], ch) for r in rows], 1)
+    out = torch.cat([ops.factorized_attention_apply(q[:, r], ws, ch, scale) for r in rows], 1)
+    wsb = torch.cat([ops.factorized_attention_bwd_partials(q[:, r], k[:, r], v[:, r], g[:, r], ch)
+                     for r in rows], 1)
+    grads = [torch.cat(d, 1) for d in zip(*[
+        ops.factorized_attention_bwd_apply(k[:, r], v[:, r], g[:, r], wsb, ch, scale)
+        for r in rows])]
+    return [out, *grads]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,c,ch", CP_STAGES)
+def test_attention_gathered_partials_match_single_call_on_card(b, n, c, ch, dtype,
+                                                               record_property):
+    """The split ops on row halves (gathered partials) against the single
+    call (fp32: within 1e-6 of the largest value; bf16: a rounding step) and
+    against the plain versions (fp32: within 1e-5, the bound of every kernel
+    against its plain version, ``chip_smoke.py``'s ``TOL``: the plain einsums
+    sum dk's and dv's N products in another order); the apply counts one A
+    (A′) launch a call. The errors go to the JUnit report."""
+    _need_card()
+    gen = torch.Generator().manual_seed(n + c)
+    q, k, v, g = (torch.randn(b, n, c, generator=gen).mul(s).cuda().to(dtype)
+                  for s in (1.0, 3.0, 1.0, 1.0))
+    scale = ch ** -0.5
+    kernels.reset_launches()
+    got = _split_attention(q, k, v, g, ch)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["factorized_attention"] == 2
+    assert kernels.LAUNCHES["factorized_attention_bwd"] == 2
+    single = [fa.factorized_attention(q, k, v, ch, scale),
+              *torch.ops.mdvit.factorized_attention_bwd(q, k, v, g, ch, scale)]
+    plain = [fa.factorized_attention_ref(q, k, v, ch, scale),
+             *fa.factorized_attention_bwd_ref(q, k, v, g, ch, scale)]
+    def rel(a, want):  # relative to the output's largest value
+        return ((a.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+    vs_single = [rel(a, s) for a, s in zip(got, single)]
+    vs_plain = [rel(a, p) for a, p in zip(got, plain)]
+    record_property("vs_single_out_dq_dk_dv", vs_single)
+    record_property("vs_plain_out_dq_dk_dv", vs_plain)
+    assert max(vs_single) <= (1e-6 if dtype == torch.float32 else 2 ** -7)
+    assert max(vs_plain) <= (1e-5 if dtype == torch.float32 else 2 ** -7)
+
+
+@pytest.mark.gpu
+def test_split_chunking_matches_library_on_card():
+    """The wrapper's mirror of the chunking (``chunk_rows``,
+    ``partial_floats``) is the library's for every head width."""
+    _need_card()
+    lib = kernels.library("factorized_attention")
+    for ch in range(1, fa.MAX_CH + 1):
+        for grad in (0, 1):
+            assert lib.mdvit_factorized_attention_chunk_rows(ch, grad) == fa.chunk_rows(ch, grad)
+            assert lib.mdvit_factorized_attention_partial(ch, grad) == fa.partial_floats(ch, grad)
+    assert lib.mdvit_factorized_attention_partial(65, 0) == -1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,ch", STAGE_C_CH)
+def test_dwconv_on_halo_rows_matches_full_grid_on_card(c, ch, dtype):
+    """B and C on a rank's rows plus its k//2 halo rows (CRPE's q zero-padded),
+    middle rows kept, against the full grid; B′ and C′ with the halo rows'
+    gradients added back into their owners' rows, and dw, db summed over the
+    two halves."""
+    _need_card()
+    h = {64: 64, 128: 32, 320: 16, 512: 8}[c]
+    h2 = h // 2
+    gen = torch.Generator().manual_seed(c)
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen) * std).cuda().to(dtype)
+
+    x, q, v, g = (rnd(2, h, h, c) for _ in range(4))
+    wc, bc, wr, br = rnd(3, 3, c, std=0.2), rnd(c, std=0.1), rnd(7, 7, c, std=0.1), rnd(c, std=0.1)
+
+    def halo(t, r, p):
+        return torch.nn.functional.pad(t, (0, 0, 0, 0, p, p))[:, r * h2:r * h2 + h2 + 2 * p]
+
+    def own(t, r, p):  # rank r's rows, zero-padded by p rows (q, g)
+        return torch.nn.functional.pad(t[:, r * h2:(r + 1) * h2], (0, 0, 0, 0, p, p))
+
+    def add_back(parts, p):
+        full = parts[0].new_zeros((2, h + 2 * p, h, c))
+        for r, t in enumerate(parts):
+            full[:, r * h2:r * h2 + h2 + 2 * p] += t
+        return full[:, p:p + h]
+
+    cpe = torch.cat([dwconv.cpe_conv(halo(x, r, 1), wc, bc)[:, 1:-1] for r in (0, 1)], 1)
+    crpe = torch.cat([dwconv.crpe_conv(own(q, r, 3), halo(v, r, 3), wr, br)[:, 3:-3]
+                      for r in (0, 1)], 1)
+    torch.testing.assert_close(cpe, dwconv.cpe_conv(x, wc, bc), **GPU_TOL[dtype])
+    torch.testing.assert_close(crpe, dwconv.crpe_conv(q, v, wr, br), **GPU_TOL[dtype])
+    cb = [torch.ops.mdvit.cpe_conv_bwd(halo(x, r, 1), wc, own(g, r, 1)) for r in (0, 1)]
+    rb = [torch.ops.mdvit.crpe_conv_bwd(own(q, r, 3), halo(v, r, 3), wr, br, own(g, r, 3))
+          for r in (0, 1)]
+    dx, dwb_c = torch.ops.mdvit.cpe_conv_bwd(x, wc, g)
+    dq, dv, dwb_r = torch.ops.mdvit.crpe_conv_bwd(q, v, wr, br, g)
+    torch.testing.assert_close(add_back([t[0] for t in cb], 1), dx, **GRAD_TOL[dtype])
+    torch.testing.assert_close(torch.cat([t[0][:, 3:-3] for t in rb], 1), dq, **GRAD_TOL[dtype])
+    torch.testing.assert_close(add_back([t[1] for t in rb], 3), dv, **GRAD_TOL[dtype])
+    for got, want in ((cb[0][1] + cb[1][1], dwb_c), (rb[0][2] + rb[1][2], dwb_r)):
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()

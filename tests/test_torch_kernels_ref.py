@@ -27,7 +27,7 @@ from mdvit_tpu_torch.models.blocks import ConvRelPosEnc
 from mdvit_tpu_torch.ops import dwconv, kernels
 from mdvit_tpu_torch.ops import factorized_attention as fa
 from tests.test_torch_kernels_gpu import ATTN_FWD_CHUNK_ROWS, attn_bucket
-from tests.test_torch_train_kernels import CHUNKED_CASES, _chunk_partials, _fold_chunks
+from tests.test_torch_train_kernels import CHUNKED_CASES
 
 torch.set_num_threads(2)
 
@@ -80,13 +80,12 @@ def test_factorized_attention_ref_matches_xla_at_classifier_widths(c, ch, n):
 
 
 def _chunked_attention_fwd(q, k, v, ch, scale):
-    """The CUDA forward's two launches in plain torch, fp32: the partials of k
-    and v per chunk of ``ATTN_FWD_CHUNK_ROWS`` tokens of ch's width bucket,
-    the fold over the chunks in their order, then out = scale·q·T."""
-    b, n, c = q.shape
-    qf, kf, vf = (t.reshape(b, n, c // ch, ch) for t in (q, k, v))
-    t = _fold_chunks(_chunk_partials(kf, vf, ATTN_FWD_CHUNK_ROWS[attn_bucket(ch)]))[2]
-    return (scale * torch.einsum("bnhi,bhij->bnhj", qf, t)).reshape(b, n, c)
+    """The CUDA forward's two launches in plain torch, fp32 (the split plain
+    versions): the partials of k and v per chunk of ``ATTN_FWD_CHUNK_ROWS``
+    tokens of ch's width bucket, the fold over the chunks in their order,
+    then out = scale·q·T."""
+    ws = fa.factorized_attention_partials_ref(k, v, ch)
+    return fa.factorized_attention_apply_ref(q, ws, ch, scale)
 
 
 @pytest.mark.parametrize("c,ch,n", CHUNKED_CASES, ids=lambda x: str(x))
@@ -223,6 +222,8 @@ def test_package_imports_no_jax():
         .replace(os.sep, ".").removesuffix(".__init__")
         for root, _, files in os.walk(pkg) for f in files if f.endswith(".py"))
     assert "mdvit_tpu_torch.train.trainer" in modules and len(modules) > 25
+    assert {"mdvit_tpu_torch.parallel.context", "mdvit_tpu_torch.train.losses_extra",
+            "mdvit_tpu_torch.train.flat_optim"} <= set(modules)
     code = ("import importlib, sys; import mdvit_tpu_torch.cli, mdvit_tpu_torch.export, "
             "mdvit_tpu_torch.kfold_aggregate, mdvit_tpu_torch.summarize_run; "
             "third = [m for m in sys.modules if m.split('.')[0] in ('pandas', 'yaml')]; "

@@ -76,54 +76,14 @@ def test_factorized_attention_bwd_ref(c, ch):
             np.testing.assert_allclose(t.grad.numpy(), b, **TOL)
 
 
-def _chunk_partials(kf, vf, rows):
-    """The partials launch in plain torch, fp32, for (B, N, heads, ch) k and
-    v: per chunk of ``rows`` tokens, in order, the column max m_s,
-    l_s = Σ exp(k − m_s) and T_s = exp(k − m_s)ᵀv."""
-    parts = []
-    for n0 in range(0, kf.shape[1], rows):
-        ck = kf[:, n0:n0 + rows]
-        m = ck.amax(dim=1)
-        e = torch.exp(ck - m[:, None])
-        parts.append((m, e.sum(dim=1), torch.einsum("bnhi,bnhj->bhij", e, vf[:, n0:n0 + rows])))
-    return parts
-
-
-def _fold_chunks(parts):
-    """The applies' fold (``fold_chunks``), over the chunks in their order:
-    M = max m_s, α_s = exp(m_s − M), L = Σ α_s l_s, T = Σ α_s T_s / L.
-    Returns M, 1 / L and T."""
-    mx = torch.stack([p[0] for p in parts]).amax(dim=0)
-    big_l, t = 0.0, 0.0
-    for m, l, ts in parts:  # s = 0..S-1
-        alpha = torch.exp(m - mx)
-        big_l = big_l + alpha * l
-        t = t + alpha[..., None] * ts
-    inv_l = 1.0 / big_l
-    return mx, inv_l, t * inv_l[..., None]
-
-
 def _chunked_attention_bwd(q, k, v, g, ch, scale):
-    """The CUDA backward's two launches in plain torch, fp32: per chunk of
-    ``ATTN_CHUNK_ROWS[ch]`` tokens the partials (``_chunk_partials``) and
-    D_s = qᵀg; the fold over chunks in their order (``_fold_chunks``, and
-    dT = scale·Σ D_s); then dq = scale·g·Tᵀ, dv = ks·dT and
+    """The CUDA backward's two launches in plain torch, fp32 (the split plain
+    versions): per chunk of ``ATTN_CHUNK_ROWS`` tokens of ch's width bucket
+    the partials m_s, l_s, T_s and D_s = qᵀg; the fold over the chunks in
+    their order (dT = scale·Σ D_s); then dq = scale·g·Tᵀ, dv = ks·dT and
     dk = ks ⊙ (v·dTᵀ − inner), inner = Σ_j dT ⊙ T, ks = exp(k − M) / L."""
-    b, n, c = q.shape
-    qf, kf, vf, gf = (t.reshape(b, n, c // ch, ch) for t in (q, k, v, g))
-    rows = ATTN_CHUNK_ROWS[attn_bucket(ch)]
-    parts = _chunk_partials(kf, vf, rows)
-    mx, inv_l, t = _fold_chunks(parts)
-    d = 0.0
-    for n0 in range(0, n, rows):  # D_s, s = 0..S-1
-        d = d + torch.einsum("bnhi,bnhj->bhij", qf[:, n0:n0 + rows], gf[:, n0:n0 + rows])
-    dt = scale * d
-    inner = (dt * t).sum(dim=-1)
-    ks = torch.exp(kf - mx[:, None]) * inv_l[:, None]
-    dq = scale * torch.einsum("bnhj,bhij->bnhi", gf, t)
-    dv = torch.einsum("bnhi,bhij->bnhj", ks, dt)
-    dk = ks * (torch.einsum("bnhj,bhij->bnhi", vf, dt) - inner[:, None])
-    return tuple(x.reshape(b, n, c) for x in (dq, dk, dv))
+    ws = fa.factorized_attention_bwd_partials_ref(q, k, v, g, ch)
+    return fa.factorized_attention_bwd_apply_ref(k, v, g, ws, ch, scale)
 
 
 # (C, ch, N): N ragged against the chunk rows (256, 128, 64, 32 for ch 8, 16,
@@ -165,8 +125,8 @@ def test_attention_chunk_rows():
     and 64 as themselves. The backward's chunk of each bucket holds 2048 to
     2560 values an input, the forward's the same but at ch 64 twice that (it
     stages two inputs, not four), in rows a multiple of 4 (the 4-row register
-    tiles), with MDViT's rows as before; the emulation cuts N tokens into
-    ⌈N / rows⌉ chunks."""
+    tiles), with MDViT's rows as before; the plain split versions cut N
+    tokens into ⌈N / rows⌉ chunks."""
     assert {ch: ATTN_CHUNK_ROWS[ch] for ch in (8, 16, 40, 64)} == {
         8: 256, 16: 128, 40: 64, 64: 32}
     assert {ch: ATTN_FWD_CHUNK_ROWS[ch] for ch in (8, 16, 40, 64)} == {
@@ -182,16 +142,19 @@ def test_attention_chunk_rows():
         fwd = ATTN_FWD_CHUNK_ROWS[ch]
         assert fwd == (2 * rows if ch == 64 else rows) and fwd % 4 == 0
 
-    def chunks(n, rows):
-        return len(_chunk_partials(torch.zeros(1, n, 1, 4), torch.zeros(1, n, 1, 4), rows))
+    def chunks(n, ch, grad=True):
+        z = torch.zeros(1, n, ch)
+        ws = (fa.factorized_attention_bwd_partials_ref(z, z, z, z, ch) if grad
+              else fa.factorized_attention_partials_ref(z, z, ch))
+        return ws.shape[1] // fa.partial_floats(ch, grad)
 
-    assert [chunks(n, ATTN_CHUNK_ROWS[8]) for n in (1, 256, 257, 4096)] == [1, 1, 2, 16]
-    assert [chunks(n, ATTN_CHUNK_ROWS[64]) for n in (33, 64, 1000)] == [2, 2, 32]
-    assert [chunks(n, ATTN_CHUNK_ROWS[16]) for n in (1024, 33)] == [8, 1]
-    assert chunks(256, ATTN_CHUNK_ROWS[40]) == 4
-    assert [chunks(n, ATTN_FWD_CHUNK_ROWS[64]) for n in (33, 64, 1000)] == [1, 1, 16]
-    assert [chunks(n, ATTN_FWD_CHUNK_ROWS[8]) for n in (257, 4096)] == [2, 16]
-    assert chunks(256, ATTN_FWD_CHUNK_ROWS[40]) == 4
+    assert [chunks(n, 8) for n in (1, 256, 257, 4096)] == [1, 1, 2, 16]
+    assert [chunks(n, 64) for n in (33, 64, 1000)] == [2, 2, 32]
+    assert [chunks(n, 16) for n in (1024, 33)] == [8, 1]
+    assert chunks(256, 40) == 4
+    assert [chunks(n, 64, False) for n in (33, 64, 1000)] == [1, 1, 16]
+    assert [chunks(n, 8, False) for n in (257, 4096)] == [2, 16]
+    assert chunks(256, 40, False) == 4
 
 
 # (B, H, W, C): the stage widths at 8×8, then ragged shapes that cut the
