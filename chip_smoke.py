@@ -155,14 +155,26 @@ Phases, each printing JSON lines; any failure exits non-zero:
             (each half's partials, the workspaces concatenated in rank order
             as the all-gather gives them, each half's apply) against the
             single call and the plain split, B–C′ on halo'd row halves
-            against the full grid, device ms of one half's A and A′ beside
-            the single call's and the bytes a rank gathers; an NCCL ctx
+            against the full grid and the plain versions, device ms of one
+            half's A and A′ beside the single call's and the bytes a rank
+            gathers; an NCCL ctx
             group of one against no group (the stage forward bit-equal, the
             BASE forward); then two gloo ranks on the one card against one
             process: MDViT's stage 0 at full width (forward, gradients) and
             BASE at full width at 512², B=2 (fp32 and bf16 forwards, one
             fp32 CP train step: loss, BN stats, gradients, launches a rank),
-            step ms, device-busy ms and peak MiB a rank;
+            step ms, device-busy ms and peak MiB a rank. Then uneven row
+            blocks: A and A′ on BASE's 480² grids split 8 : 7, on its 448²
+            grids split 4 : 4 : 3 : 3 and on ``coat_small``'s four scales
+            at 224² split 4 : 3 with the cls row on rank 0 (each rank's
+            workspace padded to the most chunks with empty partials: the
+            padded fold bit-equal to the unpadded one; against the single
+            call and the plain split), B–C′ on BASE's halo'd unequal blocks
+            against the full grid and the plain versions, and one more
+            two-rank spawn: BASE at 480² as at 512², ``mpvit_base`` and
+            ``coat_small`` at 224², B=16 (eval forward and a cross-entropy
+            pull: logits, summed gradients, launches once a block), MDViT
+            with the DeepLabV3 debranch at 512² (eval forward);
 17. the ``kernels`` line (launches from the trainer's ``fit``, and by path
    under ``launches_by_path``, ``zoo`` all 0), the card's name and power
    limit, and last the ``{"ok": true, "device": ...}`` line. Each phase
@@ -170,8 +182,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
 
 ``--dp-cards`` runs only the build, the dp phase with one NCCL rank on each
 visible card (a host of several cards) in place of the gloo ranks, and the
-cp phase's ranks: ctx over every card at 512², B=2, and on four cards the
-(2, 2) data × ctx grid at B=4, each against one process. ``--cp-only`` runs
+cp phase's ranks: ctx over every card at 512², B=2, and on four cards ctx
+at 448² (deepest rows 4, 4, 3, 3) and the (2, 2) data × ctx grid at B=4,
+each against one process. ``--cp-only`` runs
 only the build and the cp phase; with ``--dp-cards``, only the build and the
 cp phase's NCCL ranks.
 
@@ -226,6 +239,7 @@ from mdvit_tpu_torch.ops.resize import resize_bilinear
 from mdvit_tpu_torch.parallel.context import (ContextMesh, make_context_parallel_train_step,
                                               make_dp_context_mesh, model_apply_context_parallel,
                                               stage_apply_context_parallel)
+from mdvit_tpu_torch.parallel.mesh import balanced_rows
 from mdvit_tpu_torch.predict import load_experiment, make_forward
 from mdvit_tpu_torch.train import checkpoints as ckpt
 from mdvit_tpu_torch.train import steps as steps_module
@@ -427,6 +441,27 @@ CP_BLOCKS = 16
 CP_STAGES = [(CP_IMG // 4 >> i, CP_IMG // 4 >> i, c, ch) for i, (_, _, c, ch) in enumerate(STAGES)]
 CP_TIMED = 3
 CP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_cp"
+# uneven row blocks: BASE at 480² (deepest grid 15 rows: 8 + 7 on 2 ranks;
+# its grids 120², 60², 30², 15² split 64 + 56, 32 + 28, 16 + 14, 8 + 7), B =
+# CP_B: A and A′ alone on those blocks (each rank's workspace padded to the
+# most chunks with empty partials, also first in a rank's block: the padded
+# fold bit-equal to the unpadded one) and B–C′ on each rank's halo'd block,
+# as on the four-card split of CP_CARDS_UNEVEN_IMG² and coat_small's four
+# scales at 224² (the cls row in rank 0's tokens; A and A′ only), against
+# the single call or full grid and the plain versions; then the forward and
+# a train step on 2 gloo ranks with the 512² run's gates; mpvit_base and coat_small at their
+# published widths, 224², B=16 (deepest grid 7 rows: 4 + 3; CoaT's cls rows
+# on rank 0): the eval forward's logits within CP_FWD_TOL of max(1,
+# max|logit|), the summed gradients of a cross-entropy ÷ the ranks by
+# GRAD_L2_TOL, A, B, C once a block a forward and A′, B′, C′ once a block a
+# pull on every rank; MDViT with the DeepLabV3 debranch at full width,
+# CP_DEEPLAB_IMG², B = CP_B: the eval forward's logits as the classifiers'
+# and its launches those of one process; --dp-cards: ctx over four cards at
+# CP_CARDS_UNEVEN_IMG² (14 rows: 4, 4, 3, 3) with the bf16 gate
+CP_UNEVEN_IMG = 480
+CP_CLASSIFIERS = ("mpvit_base", "coat_small")
+CP_DEEPLAB_IMG = 512
+CP_CARDS_UNEVEN_IMG = 448
 # the zoo phase: the segmentation comparators at full width, 256², trained
 # and served through the entry points (none reaches the six kernels); the
 # card against the host CPU at ZOO_CPU_B images, relative to max(1, max|logit|);
@@ -2191,11 +2226,13 @@ def phase_dp(seed: int, world: int = DP_WORLD, backend: str = "gloo") -> dict:
 # ----------------------------------------------------------------- cp
 
 
-def _cp_attention(q, k, v, g, ch: int, plain: bool = False):
-    """A and A′ as two ranks run them: each row half's partials, the halves'
-    workspaces concatenated a (b, h) in rank order (what the all-gather
-    gives), each half's apply; ``plain``: the same through the plain
-    versions. Returns out, (dq, dk, dv) and the two workspaces."""
+def _cp_attention(q, k, v, g, ch: int, tokens, plain: bool = False, front: bool = False,
+                  pad: bool = True):
+    """A and A′ as ranks holding ``tokens`` rows each run them: each block's
+    partials, padded to the most chunks any block holds with empty partials
+    (last, or ``front``: first in the block; ``pad`` False: concatenated
+    as they are), in rank order (what the all-gather gives), each block's
+    apply. Returns out, (dq, dk, dv) and the two workspaces."""
     scale = ch ** -0.5
     if plain:
         parts, apply = fa.factorized_attention_partials_ref, fa.factorized_attention_apply_ref
@@ -2204,11 +2241,27 @@ def _cp_attention(q, k, v, g, ch: int, plain: bool = False):
         ops = torch.ops.mdvit
         parts, apply = ops.factorized_attention_partials, ops.factorized_attention_apply
         bparts, bapply = ops.factorized_attention_bwd_partials, ops.factorized_attention_bwd_apply
-    n = q.shape[1]
-    rows = [slice(0, n // 2), slice(n // 2, n)]
-    ws = torch.cat([parts(k[:, r], v[:, r], ch) for r in rows], 1)
+    cuts = np.cumsum((0,) + tuple(tokens))
+    rows = [slice(int(cuts[i]), int(cuts[i + 1])) for i in range(len(tokens))]
+
+    def gathered(blocks, grad):
+        if not pad:
+            return torch.cat(blocks, 1)
+        most = max(-(-t // fa.chunk_rows(ch, grad)) for t in tokens)
+        p = fa.partial_floats(ch, grad)
+        out = []
+        for ws in blocks:
+            padded = fa.pad_partials(ws, most, ch, grad)
+            if front:
+                n_own = ws.shape[1] // p
+                b3 = padded.reshape(ws.shape[0], most, p)
+                padded = torch.cat([b3[:, n_own:], b3[:, :n_own]], 1).reshape(ws.shape[0], -1)
+            out.append(padded)
+        return torch.stack(out, 1).reshape(blocks[0].shape[0], -1)
+
+    ws = gathered([parts(k[:, r], v[:, r], ch) for r in rows], False)
     out = torch.cat([apply(q[:, r], ws, ch, scale) for r in rows], 1)
-    wsb = torch.cat([bparts(q[:, r], k[:, r], v[:, r], g[:, r], ch) for r in rows], 1)
+    wsb = gathered([bparts(q[:, r], k[:, r], v[:, r], g[:, r], ch) for r in rows], True)
     grads = [torch.cat(d, 1) for d in zip(*[bapply(k[:, r], v[:, r], g[:, r], wsb, ch, scale)
                                              for r in rows])]
     return out, grads, ws, wsb
@@ -2219,18 +2272,71 @@ def _rel(got, want) -> float:
             want.float().abs().max().clamp(min=1e-30)).item()
 
 
-def _halo_rows(x: torch.Tensor, r: int, h2: int, p: int) -> torch.Tensor:
-    """Rank r's h2 rows of x with p rows of the zero-padded grid on each side."""
-    return F.pad(x, (0, 0, 0, 0, p, p))[:, r * h2:r * h2 + h2 + 2 * p]
+def _halo_rows(x: torch.Tensor, r0: int, rows: int, p: int) -> torch.Tensor:
+    """The ``rows`` rows of x from row r0, with p rows of the zero-padded grid
+    on each side."""
+    return F.pad(x, (0, 0, 0, 0, p, p))[:, r0:r0 + rows + 2 * p]
 
 
-def _add_halo(parts, h: int, h2: int, p: int) -> torch.Tensor:
-    """The halo'd row blocks' gradients added into the grid (each halo row's
-    into its owner's row), the padding cut off."""
+def _add_halo(parts, h: int, starts, p: int) -> torch.Tensor:
+    """The halo'd row blocks' gradients (block r from row ``starts[r]``)
+    added into the grid (each halo row's into its owner's row), the padding
+    cut off."""
     full = parts[0].new_zeros((parts[0].shape[0], h + 2 * p) + tuple(parts[0].shape[2:]))
-    for r, t in enumerate(parts):
-        full[:, r * h2:r * h2 + h2 + 2 * p] += t
+    for r0, t in zip(starts, parts):
+        full[:, r0:r0 + t.shape[1]] += t
     return full[:, p:p + h]
+
+
+def _cp_halo_convs(x, q, v, g, wc, bc, wr, br, rows, dtype) -> tuple[dict, bool]:
+    """B–C′ as ranks holding ``rows`` rows each of the (B, H, W, C) grids run
+    them: each rank's rows plus its k//2 halo rows (CRPE's q and the output
+    gradient zero-padded), the middle rows kept, B′'s dx and C′'s dv with the
+    halo rows' gradients added into their owners' rows, dw and db summed
+    over the ranks. Against the kernels on the full grid (``TOL``; dw, db
+    within ``BWD_WEIGHT_REL_TOL``) and against the plain versions on the
+    full grid (the same). Returns each check's relative error and whether
+    all held."""
+    h, c = x.shape[1], x.shape[3]
+    starts = [int(s) for s in np.cumsum((0,) + tuple(rows))[:-1]]
+    blocks = list(zip(starts, rows))
+    own = lambda t, r0, n, p: _halo_rows(t[:, r0:r0 + n], 0, n, p)  # noqa: E731
+    cpe = torch.cat([dwconv.cpe_conv(_halo_rows(x, r0, n, 1), wc, bc)[:, 1:-1]
+                     for r0, n in blocks], 1)
+    crpe = torch.cat([dwconv.crpe_conv(own(q, r0, n, 3), _halo_rows(v, r0, n, 3), wr, br)[:, 3:-3]
+                      for r0, n in blocks], 1)
+    cb = [torch.ops.mdvit.cpe_conv_bwd(_halo_rows(x, r0, n, 1), wc, own(g, r0, n, 1))
+          for r0, n in blocks]
+    rb = [torch.ops.mdvit.crpe_conv_bwd(own(q, r0, n, 3), _halo_rows(v, r0, n, 3), wr, br,
+                                        own(g, r0, n, 3)) for r0, n in blocks]
+    got = {"cpe_conv": cpe, "crpe_conv": crpe,
+           "cpe_conv_bwd_dx": _add_halo([t[0] for t in cb], h, starts, 1),
+           "crpe_conv_bwd_dq": torch.cat([t[0][:, 3:-3] for t in rb], 1),
+           "crpe_conv_bwd_dv": _add_halo([t[1] for t in rb], h, starts, 3),
+           "cpe_conv_bwd_dwb": sum(t[1] for t in cb), "crpe_conv_bwd_dwb": sum(t[2] for t in rb)}
+    fcb = torch.ops.mdvit.cpe_conv_bwd(x, wc, g)
+    frb = torch.ops.mdvit.crpe_conv_bwd(q, v, wr, br, g)
+    full = {"cpe_conv": dwconv.cpe_conv(x, wc, bc), "crpe_conv": dwconv.crpe_conv(q, v, wr, br),
+            "cpe_conv_bwd_dx": fcb[0], "crpe_conv_bwd_dq": frb[0], "crpe_conv_bwd_dv": frb[1],
+            "cpe_conv_bwd_dwb": fcb[1], "crpe_conv_bwd_dwb": frb[2]}
+    pcb = dwconv.cpe_conv_bwd_ref(x, wc, g)
+    prb = dwconv.crpe_conv_bwd_ref(q, v, wr, br, g)
+    stacked = lambda dw, db: torch.cat([dw.reshape(-1, c), db[None]])  # noqa: E731
+    plain = {"cpe_conv": dwconv.cpe_conv_ref(x, wc, bc),
+             "crpe_conv": dwconv.crpe_conv_ref(q, v, wr, br),
+             "cpe_conv_bwd_dx": pcb[0], "crpe_conv_bwd_dq": prb[0], "crpe_conv_bwd_dv": prb[1],
+             "cpe_conv_bwd_dwb": stacked(*pcb[1:]), "crpe_conv_bwd_dwb": stacked(*prb[2:])}
+    res, ok = {}, True
+    for against, want in (("full", full), ("plain", plain)):
+        for name, t in got.items():
+            if name.endswith("dwb"):
+                rel = _rel(t, want[name])
+                ok &= rel <= BWD_WEIGHT_REL_TOL and bool(torch.isfinite(t).all())
+            else:
+                chk = compare(t, want[name], dtype)
+                rel, ok = chk["max_rel_err"], ok and chk["ok"]
+            res[f"{name}_vs_{against}"] = rel
+    return res, ok
 
 
 def cp_kernels(seed: int) -> list:
@@ -2238,7 +2344,8 @@ def cp_kernels(seed: int) -> list:
     the four grids of BASE at ``CP_IMG``, B = ``CP_B``, whose row halves are
     what a rank of the 2-rank step sends them (``CP_STAGES``): A and A′ on row
     halves against the single call (within ``CP_REL_TOL`` in fp32) and
-    against the plain split; B–C′ on halo'd row halves against the full grid;
+    against the plain split; B–C′ on halo'd row halves against the full grid
+    and the plain versions (``_cp_halo_convs``);
     device ms of one half's A (partials + apply) and A′ beside the single
     call's and their bounds (phase 2's work on a half's rows), and the bytes
     a rank's workspace sends to the gather."""
@@ -2253,46 +2360,19 @@ def cp_kernels(seed: int) -> list:
 
             q, k, v, g = rnd(batch, n, c), rnd(batch, n, c, std=3.0), rnd(batch, n, c), rnd(batch, n, c)
             scale = ch ** -0.5
-            out, grads, ws, wsb = _cp_attention(q, k, v, g, ch)
+            halves = (n // 2, n - n // 2)
+            out, grads, ws, wsb = _cp_attention(q, k, v, g, ch, halves)
             single = fa.factorized_attention(q, k, v, ch, scale)
             single_g = torch.ops.mdvit.factorized_attention_bwd(q, k, v, g, ch, scale)
-            p_out, p_grads, _, _ = _cp_attention(q, k, v, g, ch, plain=True)
+            p_out, p_grads, _, _ = _cp_attention(q, k, v, g, ch, halves, plain=True)
             rel_single = max(_rel(a, b) for a, b in zip([out, *grads], [single, *single_g]))
             checks = [compare(a, b, dtype) for a, b in zip([out, *grads], [p_out, *p_grads])]
             ok_single = rel_single <= (CP_REL_TOL if dtype == torch.float32 else TOL[dtype]["rel"])
-            # B–C′ on the halo'd halves against the full grid
+            # B–C′ on the halo'd halves against the full grid and the plain versions
             wc, bc = rnd(3, 3, c, std=0.2).contiguous(), rnd(c, std=0.1)
             wr, br = rnd(7, 7, c, std=0.1).contiguous(), rnd(c, std=0.1)
             qg, vg, gg = (t.reshape(batch, h, w, c) for t in (q, v, g))
-            xg = vg
-            cpe = torch.cat([dwconv.cpe_conv(_halo_rows(xg, r, h2, 1), wc, bc)[:, 1:-1]
-                             for r in (0, 1)], 1)
-            crpe = torch.cat([dwconv.crpe_conv(_halo_rows(qg[:, r * h2:(r + 1) * h2], 0, h2, 3),
-                                               _halo_rows(vg, r, h2, 3), wr, br)[:, 3:-3]
-                              for r in (0, 1)], 1)
-            cb = [torch.ops.mdvit.cpe_conv_bwd(_halo_rows(xg, r, h2, 1), wc,
-                                               _halo_rows(gg[:, r * h2:(r + 1) * h2], 0, h2, 1))
-                  for r in (0, 1)]
-            rb = [torch.ops.mdvit.crpe_conv_bwd(_halo_rows(qg[:, r * h2:(r + 1) * h2], 0, h2, 3),
-                                                _halo_rows(vg, r, h2, 3), wr, br,
-                                                _halo_rows(gg[:, r * h2:(r + 1) * h2], 0, h2, 3))
-                  for r in (0, 1)]
-            full_c = dwconv.cpe_conv(xg, wc, bc)
-            full_r = dwconv.crpe_conv(qg, vg, wr, br)
-            fcb = torch.ops.mdvit.cpe_conv_bwd(xg, wc, gg)
-            frb = torch.ops.mdvit.crpe_conv_bwd(qg, vg, wr, br, gg)
-            dw_c = cb[0][1] + cb[1][1]
-            dw_r = rb[0][2] + rb[1][2]
-            halo = {
-                "cpe_conv": compare(cpe, full_c, dtype),
-                "crpe_conv": compare(crpe, full_r, dtype),
-                "cpe_conv_bwd_dx": compare(_add_halo([t[0] for t in cb], h, h2, 1), fcb[0], dtype),
-                "crpe_conv_bwd_dq": compare(torch.cat([t[0][:, 3:-3] for t in rb], 1), frb[0], dtype),
-                "crpe_conv_bwd_dv": compare(_add_halo([t[1] for t in rb], h, h2, 3), frb[1], dtype),
-                "cpe_conv_bwd_dwb_rel": _rel(dw_c, fcb[1]), "crpe_conv_bwd_dwb_rel": _rel(dw_r, frb[2])}
-            halo_ok = (all(v["ok"] for v in halo.values() if isinstance(v, dict))
-                       and halo["cpe_conv_bwd_dwb_rel"] <= BWD_WEIGHT_REL_TOL
-                       and halo["crpe_conv_bwd_dwb_rel"] <= BWD_WEIGHT_REL_TOL)
+            halo, halo_ok = _cp_halo_convs(vg, qg, vg, gg, wc, bc, wr, br, (h2, h - h2), dtype)
             half = slice(0, n // 2)
             half_el, item = batch * (n // 2) * c, q.element_size()
             rec = {"phase": "cp", "part": "kernels", "shape": [batch, n, c, ch],
@@ -2301,8 +2381,7 @@ def cp_kernels(seed: int) -> list:
                    "split_bit_equal_single": all(_same_bits(a, b) for a, b in
                                                  zip([out, *grads], [single, *single_g])),
                    "split_vs_plain": [ch_["max_rel_err"] for ch_ in checks],
-                   "halo": {k_: (v_["max_rel_err"] if isinstance(v_, dict) else v_)
-                            for k_, v_ in halo.items()},
+                   "halo": halo,
                    "gather_bytes_per_rank": {"fwd": ws.numel() * 4 // 2, "bwd": wsb.numel() * 4 // 2},
                    "ms": {"A_single": device_ms(lambda: fa.factorized_attention(q, k, v, ch, scale)),
                           "A_half": device_ms(lambda: torch.ops.mdvit.factorized_attention_apply(
@@ -2325,6 +2404,116 @@ def cp_kernels(seed: int) -> list:
     return recs
 
 
+def _uneven_cases():
+    """``cp_uneven_kernels``' cases: (case, B, (H, W, C, ch), each rank's rows
+    of the grid, each rank's tokens, whether timed). BASE's four grids at
+    ``CP_UNEVEN_IMG`` over ``CP_WORLD`` ranks (8 : 7, timed) and at
+    ``CP_CARDS_UNEVEN_IMG`` over 4 (4 : 4 : 3 : 3), B = ``CP_B``;
+    ``coat_small``'s four serial scales at ``CLS_IMG`` over ``CP_WORLD``
+    (4 : 3 of the 7-row grid), B = ``BATCH``, with the scale's cls row in
+    rank 0's tokens."""
+    for img, world in ((CP_UNEVEN_IMG, CP_WORLD), (CP_CARDS_UNEVEN_IMG, 4)):
+        deep = img // 32
+        for i, (_, _, c, ch) in enumerate(STAGES):
+            h = img // 4 >> i
+            rows = tuple(h // deep * r for r in balanced_rows(deep, world))
+            yield (f"BASE {img}² over {world}", CP_B, (h, h, c, ch), rows,
+                   tuple(r * h for r in rows), world == CP_WORLD)
+    deep = CLS_IMG // 32
+    for i, c in enumerate(coat.CONFIGS["coat_small"]["embed_dims"]):
+        h = CLS_IMG // 4 >> i
+        rows = tuple(h // deep * r for r in balanced_rows(deep, CP_WORLD))
+        yield (f"coat_small {CLS_IMG}² over {CP_WORLD}", BATCH, (h, h, c, c // 8), rows,
+               tuple(r * h + (j == 0) for j, r in enumerate(rows)), False)
+
+
+def cp_uneven_kernels(seed: int) -> list:
+    """The kernels alone on the unequal row blocks the uneven CP paths send
+    them (``_uneven_cases``), fp32 and bf16: A and A′ against the single call
+    (in fp32 within ``CP_REL_TOL`` where every rank's block starts on one of
+    the single call's chunk boundaries, else within ``TOL`` as against the
+    plain version: the fold then sums other partials) and the plain split
+    (``TOL``), the padded fold
+    (empty partials last, and first in a rank's block) bit-equal to the
+    unpadded fold on the same partials; B–C′ on each rank's halo'd block
+    against the full grid and the plain versions (``_cp_halo_convs``; not
+    at CoaT's cls-row tokens, whose convs see only image rows); device ms of
+    each rank's A (its partials and its apply over the gathered, padded
+    workspace) and A′ beside their bounds (phase 2's work on the rank's
+    rows) at BASE's 8 : 7 blocks."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 66)
+    recs = []
+    for case, batch, (h, w, c, ch), rows, tokens, timed in _uneven_cases():
+        n = sum(tokens)
+        for dtype in (torch.float32, torch.bfloat16):
+            def rnd(*shape, std=1.0):
+                return (torch.randn(shape, generator=gen, device="cuda") * std).to(dtype)
+
+            q, k, v, g = rnd(batch, n, c), rnd(batch, n, c, std=3.0), rnd(batch, n, c), rnd(batch, n, c)
+            scale = ch ** -0.5
+            out, grads, ws, wsb = _cp_attention(q, k, v, g, ch, tokens)
+            front, front_grads, _, _ = _cp_attention(q, k, v, g, ch, tokens, front=True)
+            bare, bare_grads, _, _ = _cp_attention(q, k, v, g, ch, tokens, pad=False)
+            single = fa.factorized_attention(q, k, v, ch, scale)
+            single_g = torch.ops.mdvit.factorized_attention_bwd(q, k, v, g, ch, scale)
+            p_out, p_grads, _, _ = _cp_attention(q, k, v, g, ch, tokens, plain=True)
+            got = [out, *grads]
+            rel_single = max(_rel(a, b) for a, b in zip(got, [single, *single_g]))
+            checks = [compare(a, b, dtype) for a, b in zip(got, [p_out, *p_grads])]
+            pad_exact = all(_same_bits(a, b) for a, b in zip(got, [bare, *bare_grads]))
+            front_exact = all(_same_bits(a, b) for a, b in zip([front, *front_grads], got))
+            # every rank's first token on one of the single call's chunk
+            # boundaries: the fold sums the single call's partials, fp32
+            # within CP_REL_TOL; else other partials (TOL, as the plain version)
+            aligned = all(int(t) % fa.chunk_rows(ch, grad) == 0
+                          for t in np.cumsum(tokens)[:-1] for grad in (False, True))
+            single_tol = CP_REL_TOL if dtype == torch.float32 and aligned else TOL[dtype]["rel"]
+            ok_single = rel_single <= single_tol
+            halo, halo_ok = None, True
+            if n == h * w:
+                wc, bc = rnd(3, 3, c, std=0.2).contiguous(), rnd(c, std=0.1)
+                wr, br = rnd(7, 7, c, std=0.1).contiguous(), rnd(c, std=0.1)
+                qg, vg, gg = (t.reshape(batch, h, w, c) for t in (q, v, g))
+                halo, halo_ok = _cp_halo_convs(vg, qg, vg, gg, wc, bc, wr, br, rows, dtype)
+            cuts = np.cumsum((0,) + tokens)
+            item = q.element_size()
+            ms, bound = {}, {}
+            for r in range(len(tokens) if timed else 0):
+                sl = slice(int(cuts[r]), int(cuts[r + 1]))
+                qr, kr, vr, gr = (t[:, sl] for t in (q, k, v, g))
+                el = batch * tokens[r] * c
+                ms[f"A_rank{r}"] = device_ms(lambda: (
+                    torch.ops.mdvit.factorized_attention_partials(kr, vr, ch),
+                    torch.ops.mdvit.factorized_attention_apply(qr, ws, ch, scale)))
+                ms[f"A_bwd_rank{r}"] = device_ms(lambda: (
+                    torch.ops.mdvit.factorized_attention_bwd_partials(qr, kr, vr, gr, ch),
+                    torch.ops.mdvit.factorized_attention_bwd_apply(kr, vr, gr, wsb, ch, scale)))
+                bound[f"A_rank{r}"] = bound_ms(4 * el * item, 4 * el * ch)[0]
+                bound[f"A_bwd_rank{r}"] = bound_ms(7 * el * item, 10 * el * ch)[0]
+            if timed:
+                ms["A_single"] = device_ms(lambda: fa.factorized_attention(q, k, v, ch, scale))
+                ms["A_bwd_single"] = device_ms(
+                    lambda: torch.ops.mdvit.factorized_attention_bwd(q, k, v, g, ch, scale))
+            rec = {"phase": "cp", "part": "uneven_kernels", "case": case,
+                   "shape": [batch, n, c, ch], "rows_per_rank": list(rows),
+                   "tokens_per_rank": list(tokens), "dtype": str(dtype).replace("torch.", ""),
+                   "chunks_per_rank": {"fwd": [-(-t // fa.chunk_rows(ch, False)) for t in tokens],
+                                       "bwd": [-(-t // fa.chunk_rows(ch, True)) for t in tokens]},
+                   "split_vs_single_max_rel": rel_single, "ranks_on_chunk_boundaries": aligned,
+                   "split_vs_plain": [ch_["max_rel_err"] for ch_ in checks],
+                   "padded_bit_equal_unpadded": pad_exact,
+                   "empty_first_bit_equal_empty_last": front_exact,
+                   "halo": halo, "ms": ms, "bound_ms": bound,
+                   "tol": {"split_vs_single_rel": single_tol, **TOL[dtype]}}
+            emit(rec)
+            recs.append(rec)
+            if not (ok_single and all(ch_["ok"] for ch_ in checks) and pad_exact
+                    and front_exact and halo_ok):
+                raise RuntimeError(f"cp uneven kernels failed: {json.dumps(rec)[:2000]}")
+            del q, k, v, g, ws, wsb
+    return recs
+
+
 def _cp_stage(seed: int) -> torch.nn.Module:
     """MDViT's stage 0 at full width: dim 64, 2 blocks, 8 heads, MLP ratio 8,
     Sup gate, 4 domains."""
@@ -2332,23 +2521,23 @@ def _cp_stage(seed: int) -> torch.nn.Module:
     return MHSAStage(64, 2, 8, 8.0, TRAIN_D, sup=True).cuda().eval()
 
 
-def _cp_inputs(seed: int, batch: int):
+def _cp_inputs(seed: int, batch: int, img: int = CP_IMG):
     gen = torch.Generator().manual_seed(seed + 62)
-    x = torch.randn((batch, CP_IMG, CP_IMG, 3), generator=gen)
-    y = (torch.rand((batch, CP_IMG, CP_IMG, 1), generator=gen) > 0.5).float()
+    x = torch.randn((batch, img, img, 3), generator=gen)
+    y = (torch.rand((batch, img, img, 1), generator=gen) > 0.5).float()
     dom = torch.eye(TRAIN_D)[torch.arange(batch) % TRAIN_D]
     return x.cuda(), y.cuda(), dom.cuda()
 
 
-def _cp_base(seed: int, dtype=torch.float32) -> torch.nn.Module:
-    return build_model("BASE", img_size=CP_IMG, num_domains=TRAIN_D, dtype=dtype,
+def _cp_base(seed: int, dtype=torch.float32, img: int = CP_IMG) -> torch.nn.Module:
+    return build_model("BASE", img_size=img, num_domains=TRAIN_D, dtype=dtype,
                        device="cuda", seed=seed, drop_rate=0.1, drop_path_rate=0.1)
 
 
-def _cp_run(seed: int, group, stage: bool = True, batch: int = CP_B) -> dict:
+def _cp_run(seed: int, group, stage: bool = True, batch: int = CP_B, img: int = CP_IMG) -> dict:
     """What one rank of ``group`` (a process group or a ``ContextMesh``;
     None: one process) computes: MDViT's stage 0 (64², B=16) forward and the
-    gradients of Σ out·g (summed over the ranks); BASE at ``CP_IMG``, B =
+    gradients of Σ out·g (summed over the ranks); BASE at ``img``, B =
     ``batch``: the bf16 and fp32 eval forwards' logits, one CP train step
     (AdamW 1e-4, wd 0.05) with the launches around it, its loss, gradients and BN stats; then
     ``CP_TIMED`` steps timed, one profiled, and the step's peak memory."""
@@ -2370,11 +2559,11 @@ def _cp_run(seed: int, group, stage: bool = True, batch: int = CP_B) -> dict:
             grads = [p.view_as(t) for p, t in zip(flat.split([t.numel() for t in grads]), grads)]
         res["stage_out"], res["stage_grads"] = out.detach().cpu(), [t.cpu() for t in grads]
         del st, x, g, out, grads
-    x, y, dom = _cp_inputs(seed, batch)
-    model = _cp_base(seed, torch.bfloat16).eval()
+    x, y, dom = _cp_inputs(seed, batch, img)
+    model = _cp_base(seed, torch.bfloat16, img).eval()
     with torch.no_grad():
         res["logits_bf16"] = model_apply_context_parallel(model, x, dom, group)["seg"].float().cpu()
-    model = _cp_base(seed)
+    model = _cp_base(seed, img=img)
     with torch.no_grad():
         out = model_apply_context_parallel(model.eval(), x, dom, group)
     res["logits"] = out["seg"].cpu()
@@ -2416,28 +2605,33 @@ def _barrier(group) -> None:
 
 
 def _cp_rank(rank: int, seed: int, store: str, out: str, world: int, backend: str,
-             grid, stage: bool, batch: int) -> None:
-    """A rank of the cp phase: ``_cp_run`` in the group of all ranks (or the
-    (data, ctx) ``grid``), saved to ``out/rank<r>.pt``; gloo ranks share card
-    0, an NCCL rank takes card r."""
+             grid, run, kwargs: dict) -> None:
+    """A rank of the cp phase: ``run(seed, group, **kwargs)`` (``_cp_run`` or
+    ``_cp_more_run``) in the group of all ranks (or the (data, ctx)
+    ``grid``), saved to ``out/rank<r>.pt``; gloo ranks share card 0, an
+    NCCL rank takes card r."""
     torch.cuda.set_device(rank if backend == "nccl" else 0)
     torch.distributed.init_process_group(backend, init_method=f"file://{store}", rank=rank,
                                          world_size=world)
     try:
         group = make_dp_context_mesh(*grid) if grid else torch.distributed.group.WORLD
         with no_tf32():
-            res = _cp_run(seed, group, stage, batch)
+            res = run(seed, group, **kwargs)
         torch.save(res, os.path.join(out, f"rank{rank}.pt"))
     finally:
         torch.distributed.destroy_process_group()
 
 
-def _cp_spawn(seed: int, world: int, backend: str, grid=None, stage: bool = True,
-              batch: int = CP_B) -> list:
-    tag = f"{backend}{world}{'x'.join(map(str, grid or ()))}"
+_CP_STORES = itertools.count()
+
+
+def _cp_spawn(seed: int, world: int, backend: str, grid=None, run=None, **kwargs) -> list:
+    """``world`` ranks of ``run`` (default ``_cp_run``) on a fresh file store,
+    each's result."""
+    store = CP_DIR / f"store{next(_CP_STORES)}"
     torch.multiprocessing.start_processes(
-        _cp_rank, args=(seed, str(CP_DIR / tag), str(CP_DIR), world, backend, grid, stage,
-                        batch), nprocs=world, join=True, start_method="spawn")
+        _cp_rank, args=(seed, str(store), str(CP_DIR), world, backend, grid, run or _cp_run,
+                        kwargs), nprocs=world, join=True, start_method="spawn")
     return [torch.load(CP_DIR / f"rank{r}.pt", weights_only=False) for r in range(world)]
 
 
@@ -2529,9 +2723,126 @@ def cp_group_of_one(seed: int) -> dict:
     return rec
 
 
+def _cp_classifier(name: str, seed: int, group) -> dict:
+    """``name`` at its published widths, 224², B=16, on the card: the eval
+    forward through ``model_apply_context_parallel`` over ``group`` (None:
+    one process) with the launch counters read around it, then one backward
+    pull of the mean cross-entropy with the counters read around it, its
+    gradients summed over the ranks ÷ their count. One process saves its
+    calibrated weights (MPViT's BNs, ``_cls_model``), logits and gradients
+    to ``CP_DIR``; a rank loads the weights and compares with the rest."""
+    x, labels = _cls_input(seed)
+    ref_path = CP_DIR / f"single_{name}.pt"
+    if group is None:
+        model = _cls_model(name, torch.float32, seed, x)
+    else:
+        model = build_model(name, device="cuda", seed=seed).eval()
+        model.load_state_dict(torch.load(ref_path, weights_only=False)["state_dict"])
+    kernels.reset_launches()
+    out = model_apply_context_parallel(model, x, None, group)
+    torch.cuda.synchronize()
+    fwd = dict(kernels.LAUNCHES)
+    kernels.reset_launches()
+    grads = torch.autograd.grad(F.cross_entropy(out["logits"], labels), list(model.parameters()),
+                                allow_unused=True, materialize_grads=True)
+    torch.cuda.synchronize()
+    bwd = dict(kernels.LAUNCHES)
+    logits = out["logits"].detach().float().cpu()
+    if group is None:
+        torch.save({"state_dict": model.state_dict(), "logits": logits,
+                    "grads": [t.cpu() for t in grads]}, ref_path)
+        return {"forward_launches": fwd, "backward_pull_launches": bwd,
+                "finite": bool(torch.isfinite(logits).all())}
+    flat = torch.cat([t.reshape(-1) for t in grads])
+    torch.distributed.all_reduce(flat, group=group)
+    flat /= torch.distributed.get_world_size(group)
+    ref = torch.load(ref_path, weights_only=False)
+    want = torch.cat([t.reshape(-1) for t in ref["grads"]]).cuda()
+    scale = max(1.0, ref["logits"].abs().max().item())
+    return {"forward_launches": fwd, "backward_pull_launches": bwd,
+            "finite": bool(torch.isfinite(logits).all()),
+            "logits_err": (logits - ref["logits"]).abs().max().item() / scale,
+            "grad_l2_rel": ((flat.double() - want.double()).norm() / want.double().norm()).item()}
+
+
+def _cp_deeplab(seed: int, group) -> dict:
+    """MDViT with the DeepLabV3 debranch at full width, ``CP_DEEPLAB_IMG``²,
+    B = ``CP_B``: the eval forward's logits over ``group`` (None: one
+    process) with the launch counters read around it."""
+    model = build_model("MDViT", img_size=CP_DEEPLAB_IMG, num_domains=TRAIN_D,
+                        decoder_name="DeepLabV3", device="cuda", seed=seed).eval()
+    x, _, dom = _cp_inputs(seed, CP_B, CP_DEEPLAB_IMG)
+    kernels.reset_launches()
+    with torch.no_grad():
+        logits = split_seg(model_apply_context_parallel(model, x, dom, group)["seg"])[0]
+    torch.cuda.synchronize()
+    return {"launches": dict(kernels.LAUNCHES), "logits": logits.float().cpu()}
+
+
+def _cp_more_run(seed: int, group) -> dict:
+    """What one rank of ``group`` (None: one process) computes of the uneven
+    splits: BASE at ``CP_UNEVEN_IMG`` (``_cp_run``), the ``CP_CLASSIFIERS``
+    and MDViT's DeepLabV3 debranch."""
+    res = {"base": _cp_run(seed, group, stage=False, img=CP_UNEVEN_IMG)}
+    torch.cuda.empty_cache()
+    res["classifiers"] = {}
+    for name in CP_CLASSIFIERS:
+        res["classifiers"][name] = _cp_classifier(name, seed, group)
+        torch.cuda.empty_cache()
+    res["deeplab"] = _cp_deeplab(seed, group)
+    return res
+
+
+def _cp_more_records(ranks: list, single: dict) -> list:
+    """The uneven splits' records, each with ``ok``: BASE at
+    ``CP_UNEVEN_IMG`` as the 512² run, the classifiers and DeepLabV3."""
+    base = {"phase": "cp", "part": "uneven_ranks", "world": len(ranks), "backend": "gloo",
+            "img": CP_UNEVEN_IMG, "B": CP_B,
+            "deepest_rows_per_rank": list(balanced_rows(CP_UNEVEN_IMG // 32, len(ranks))),
+            **_cp_compare([r["base"] for r in ranks], single["base"], False),
+            "tol": {"logits": CP_FWD_TOL, "logits_bf16_vs_fp32_factor": CP_BF16_FACTOR,
+                    "loss_rel": CP_LOSS_RTOL, "bn_rel": CP_BN_TOL, "grad_l2": GRAD_L2_TOL}}
+    base["ok"] = _cp_ok(base, False)
+    recs = [base]
+    for name in CP_CLASSIFIERS:
+        blocks = CLASSIFIERS[name]
+        one = single["classifiers"][name]
+        per = [r["classifiers"][name] for r in ranks]
+        rec = {"phase": "cp", "part": "classifier", "model": name, "world": len(ranks),
+               "img": CLS_IMG, "B": BATCH, "blocks": blocks,
+               "logits_err": max(p["logits_err"] for p in per),
+               "grad_l2_rel": max(p["grad_l2_rel"] for p in per),
+               "forward_launches_per_rank": [p["forward_launches"] for p in per],
+               "backward_pull_launches_per_rank": [p["backward_pull_launches"] for p in per],
+               "one_process_launches": [one["forward_launches"], one["backward_pull_launches"]],
+               "tol": {"logits": CP_FWD_TOL, "grad_l2": GRAD_L2_TOL}}
+        fwd_want = {k: blocks if k in FORWARD else 0 for k in FORWARD + BACKWARD}
+        bwd_want = {k: blocks if k in BACKWARD else 0 for k in FORWARD + BACKWARD}
+        rec["ok"] = (rec["logits_err"] <= CP_FWD_TOL and rec["grad_l2_rel"] <= GRAD_L2_TOL
+                     and one["finite"] and all(p["finite"] for p in per)
+                     and all(p["forward_launches"] == fwd_want for p in per)
+                     and all(p["backward_pull_launches"] == bwd_want for p in per))
+        recs.append(rec)
+    one = single["deeplab"]
+    scale = max(1.0, one["logits"].abs().max().item())
+    rec = {"phase": "cp", "part": "deeplabv3", "model": "MDViT_DeepLabV3", "world": len(ranks),
+           "img": CP_DEEPLAB_IMG, "B": CP_B,
+           "logits_err": max((r["deeplab"]["logits"] - one["logits"]).abs().max().item()
+                             for r in ranks) / scale,
+           "launches_per_rank": [r["deeplab"]["launches"] for r in ranks],
+           "one_process_launches": one["launches"], "tol": {"logits": CP_FWD_TOL}}
+    rec["ok"] = (rec["logits_err"] <= CP_FWD_TOL
+                 and all(bool(torch.isfinite(r["deeplab"]["logits"]).all()) for r in ranks)
+                 and all(r["deeplab"]["launches"] == one["launches"] for r in ranks)
+                 and all(one["launches"][k] == CP_BLOCKS for k in FORWARD))
+    recs.append(rec)
+    return recs
+
+
 def phase_cp(seed: int) -> dict:
     """Context parallelism on the card: (1) the kernels alone on row halves
-    (``cp_kernels``); (2) a ctx group of one against no group
+    (``cp_kernels``) and on the uneven paths' unequal blocks
+    (``cp_uneven_kernels``); (2) a ctx group of one against no group
     (``cp_group_of_one``); (3) ``CP_WORLD`` gloo ranks on card 0 against one
     process: MDViT's stage 0 at full width forward and backward, BASE at full
     width at ``CP_IMG``, B = ``CP_B``: the forward, one train step, the
@@ -2541,6 +2852,7 @@ def phase_cp(seed: int) -> dict:
     shutil.rmtree(CP_DIR, ignore_errors=True)
     CP_DIR.mkdir(parents=True)
     cp_kernels(seed)
+    cp_uneven_kernels(seed)
     one = cp_group_of_one(seed)
     single = _cp_run(seed, None)
     ranks = _cp_spawn(seed, CP_WORLD, "gloo")
@@ -2552,10 +2864,32 @@ def phase_cp(seed: int) -> dict:
                    "grad_l2": GRAD_L2_TOL, "stage_out_rel": CP_STAGE_TOL,
                    "stage_grad_rel": CP_STAGE_GRAD_TOL}}
     emit(rec)
-    shutil.rmtree(CP_DIR, ignore_errors=True)
     if not _cp_ok(rec, True):
         raise RuntimeError(f"cp phase failed: {json.dumps(rec)[:2000]}")
-    return ranks[0]["launches"]
+    del single
+    more_single = _cp_more_run(seed, None)
+    torch.cuda.empty_cache()
+    more = _cp_spawn(seed, CP_WORLD, "gloo", run=_cp_more_run)
+    failed = []
+    for r in _cp_more_records(more, more_single):
+        emit(r)
+        if not r["ok"]:
+            failed.append(r.get("model", r["part"]))
+    shutil.rmtree(CP_DIR, ignore_errors=True)
+    if failed:
+        raise RuntimeError(f"cp phase's uneven splits failed: {failed}")
+    cls = dict.fromkeys(FORWARD + BACKWARD, 0)
+    for name in CP_CLASSIFIERS:
+        for launches in (more[0]["classifiers"][name]["forward_launches"],
+                         more[0]["classifiers"][name]["backward_pull_launches"]):
+            for k in cls:
+                cls[k] += launches[k]
+    return {f"cp train step fp32 BASE {CP_IMG}, rank 0 of {CP_WORLD}": ranks[0]["launches"],
+            f"cp train step fp32 BASE {CP_UNEVEN_IMG} (uneven rows), rank 0 of {CP_WORLD}":
+                more[0]["base"]["launches"],
+            f"cp forward + pull {' + '.join(CP_CLASSIFIERS)}, rank 0 of {CP_WORLD}": cls,
+            f"cp forward MDViT_DeepLabV3 {CP_DEEPLAB_IMG}, rank 0 of {CP_WORLD}":
+                more[0]["deeplab"]["launches"]}
 
 
 def phase_cp_cards(seed: int) -> None:
@@ -2565,12 +2899,15 @@ def phase_cp_cards(seed: int) -> None:
     shutil.rmtree(CP_DIR, ignore_errors=True)
     CP_DIR.mkdir(parents=True)
     world = torch.cuda.device_count()
-    runs = [("ctx", None, CP_B)] + ([("dp_x_cp", (2, 2), 4)] if world == 4 else [])
-    for name, grid, batch in runs:
-        single = _cp_run(seed, None, stage=False, batch=batch)
-        ranks = _cp_spawn(seed, world, "nccl", grid, stage=False, batch=batch)
+    runs = ([("ctx", None, CP_B, CP_IMG)]
+            + ([("ctx_uneven", None, CP_B, CP_CARDS_UNEVEN_IMG), ("dp_x_cp", (2, 2), 4, CP_IMG)]
+               if world == 4 else []))
+    for name, grid, batch, img in runs:
+        single = _cp_run(seed, None, stage=False, batch=batch, img=img)
+        ranks = _cp_spawn(seed, world, "nccl", grid, stage=False, batch=batch, img=img)
         rec = {"phase": "cp", "part": name, "world": world, "backend": "nccl",
-               "grid": grid or [1, world], "img": CP_IMG, "B": batch,
+               "grid": grid or [1, world], "img": img, "B": batch,
+               "deepest_rows_per_rank": list(balanced_rows(img // 32, grid[1] if grid else world)),
                **_cp_compare(ranks, single, False)}
         emit(rec)
         if not _cp_ok(rec, False):
@@ -3014,7 +3351,7 @@ def main() -> int:
             if args.dp_cards:
                 timed("cp_cards", phase_cp_cards, args.seed)
             else:
-                emit({"phase": "cp_launches", "launches": timed("cp", phase_cp, args.seed)})
+                emit({"phase": "cp_launches", "launches_by_path": timed("cp", phase_cp, args.seed)})
         emit({"phase": "done", "seconds": time.perf_counter() - t0, "by_phase": seconds})
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {
@@ -3043,7 +3380,7 @@ def main() -> int:
              "Trainer.fit": trainer["launches"], "exported program B=16 fp32": export_launches,
              "remat train step fp32": remat_launches,
              f"dp train step fp32, rank 0 of {DP_WORLD}": dp_launches,
-             f"cp train step fp32 BASE {CP_IMG}, rank 0 of {CP_WORLD}": cp_launches,
+             **cp_launches,
              "zoo": zoo_launches,
              "classifiers": classifier_launches}
     line = []

@@ -21,7 +21,8 @@ appear once in the ``state_dict``, under ``mhsa_stages.i.{cpe, crpe}``.
 
 Under context parallelism (``parallel.mesh.current_context()``, either
 mode) the tokens are this rank's rows of the grid, ``size`` its local
-(H/n, W): CPE and CRPE run kernels B and C on the rows plus the
+(rows, W), the ranks' rows possibly unequal (``RowShard.split``): CPE and
+CRPE run kernels B and C on the rows plus the
 neighbours' ``k//2`` halo rows (``halo_rows``; CRPE's q, which has
 no halo, zero-padded to v's rows) and keep the middle rows, and
 ``FactorAtt`` runs kernel A's partials, an all-gather of them and its apply
@@ -144,7 +145,8 @@ class FactorAtt(nn.Module):
         if ctx is None:
             att = fa.factorized_attention(q, k, v, ch, ch ** -0.5)
         else:
-            att = fa.factorized_attention_cp(q, k, v, ch, ch ** -0.5, ctx.group)
+            tokens = [r * size[1] for r in ctx.split(size[0])]
+            att = fa.factorized_attention_cp(q, k, v, ch, ch ** -0.5, ctx.group, tokens)
         out = att + crpe(q, v, size)
         if self.sup:
             gate = self.domain_layer(domain_onehot.to(out.dtype))

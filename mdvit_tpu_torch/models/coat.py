@@ -35,8 +35,16 @@ from mdvit_tpu_torch.ops import factorized_attention as fa
 from mdvit_tpu_torch.ops.layers import Conv2d, Linear, Mlp
 from mdvit_tpu_torch.ops.norm import DomainLayerNorm
 from mdvit_tpu_torch.ops.resize import resize_bilinear
+from mdvit_tpu_torch.parallel.mesh import current_context, from_first
 
 Size = Tuple[int, int]
+
+
+def _lead() -> int:
+    """The cls rows this rank's tokens start with: 1, but 0 on every ctx rank
+    after the first under context parallelism (rank 0 holds the cls row)."""
+    ctx = current_context()
+    return 1 if ctx is None or ctx.index == 0 else 0
 
 
 class FactorAttCls(nn.Module):
@@ -54,14 +62,23 @@ class FactorAttCls(nn.Module):
         ch = c // self.num_heads
         qkv = self.qkv(x)
         q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
-        att = fa.factorized_attention(q, k, v, ch, ch ** -0.5)
-        crpe_img = crpe(q[:, 1:], v[:, 1:], size)
-        return self.proj(att + F.pad(crpe_img, (0, 0, 1, 0)))
+        ctx = current_context()
+        if ctx is None:
+            att = fa.factorized_attention(q, k, v, ch, ch ** -0.5)
+        else:  # the cls row counted once, in rank 0's partials
+            tokens = [r * size[1] + (i == 0) for i, r in enumerate(ctx.split(size[0]))]
+            att = fa.factorized_attention_cp(q, k, v, ch, ch ** -0.5, ctx.group, tokens)
+        lead = _lead()
+        crpe_img = crpe(q[:, lead:], v[:, lead:], size)
+        return self.proj(att + F.pad(crpe_img, (0, 0, lead, 0)))
 
 
 def _with_cpe(x: torch.Tensor, size: Size, cpe: ConvPosEnc) -> torch.Tensor:
     """The CPE of the image rows, the cls row passed through."""
-    return torch.cat([x[:, :1], cpe(x[:, 1:], size)], dim=1)
+    lead = _lead()
+    if lead == 0:
+        return cpe(x, size)
+    return torch.cat([x[:, :lead], cpe(x[:, lead:], size)], dim=1)
 
 
 class CoaTSerialBlock(nn.Module):
@@ -86,8 +103,9 @@ def _interp_tokens(x: torch.Tensor, size_in: Size, size_out: Size) -> torch.Tens
     """Bilinear resize of the image rows from ``size_in`` to ``size_out``,
     the cls row passed through (``coat.py:_interp_tokens``)."""
     b, _, c = x.shape
-    grid = resize_bilinear(x[:, 1:].reshape(b, size_in[0], size_in[1], c), size_out)
-    return torch.cat([x[:, :1], grid.reshape(b, size_out[0] * size_out[1], c)], dim=1)
+    lead = _lead()
+    grid = resize_bilinear(x[:, lead:].reshape(b, size_in[0], size_in[1], c), size_out)
+    return torch.cat([x[:, :lead], grid.reshape(b, size_out[0] * size_out[1], c)], dim=1)
 
 
 class _ParallelBlockImpl(nn.Module):
@@ -132,7 +150,15 @@ class _ParallelBlockImpl(nn.Module):
 
 class CoaT(nn.Module):
     """CoaT (``parallel_depth`` > 0) or CoaT-Lite classifier:
-    ``{"logits": (B, num_classes), "feat": (B, C)}``."""
+    ``{"logits": (B, num_classes), "feat": (B, C)}``.
+
+    Under context parallelism (``parallel/context.py``) each scale's cls row
+    lives on ctx rank 0, the other ranks hold image rows only: rank 0's
+    attention partials count the cls row once, and the head reads the cls
+    rows rank 0 sends to every rank (``from_first``)."""
+
+    context_parallel_gap = None
+    total_stride = 32  # the /4 patch embed, then /2 at scales 2 to 4
 
     def __init__(self, patch_size: int = 4, num_classes: int = 1000,
                  embed_dims: Sequence[int] = (64, 128, 256, 320),
@@ -183,7 +209,7 @@ class CoaT(nn.Module):
         """x (B, H, W, 3) normalised images; ``domain_onehot``, ``train`` and
         ``gen`` are the JAX module's signature (CoaT has no dropout, no
         stochastic depth and no BatchNorm)."""
-        b = x.shape[0]
+        b, lead = x.shape[0], _lead()
         cpes = [getattr(self, f"cpe{i}") for i in range(1, 5)]
         crpes = [getattr(self, f"crpe{i}") for i in range(1, 5)]
         tokens, sizes, cur = [], [], x
@@ -191,21 +217,22 @@ class CoaT(nn.Module):
             grid = getattr(self, f"patch_embed{i}")(cur)
             h, w = grid.shape[1], grid.shape[2]
             t = getattr(self, f"patch_norm{i}")(grid.reshape(b, h * w, -1))
-            cls_tok = getattr(self, f"cls_token{i}").to(t.dtype).expand(b, 1, t.shape[2])
-            t = torch.cat([cls_tok, t], dim=1)
+            if lead:
+                cls_tok = getattr(self, f"cls_token{i}").to(t.dtype).expand(b, 1, t.shape[2])
+                t = torch.cat([cls_tok, t], dim=1)
             for j in range(self.serial_depths[i - 1]):
                 t = getattr(self, f"serial{i}_{j}")(t, (h, w), cpes[i - 1], crpes[i - 1])
             tokens.append(t)
             sizes.append((h, w))
-            cur = t[:, 1:].reshape(b, h, w, -1)
+            cur = t[:, lead:].reshape(b, h, w, -1)
         if self.parallel_depth == 0:
-            cls4 = self.norm4(tokens[3])[:, 0]
+            cls4 = from_first(self.norm4(tokens[3])[:, 0])
             return {"logits": self.head(cls4), "feat": cls4}
         xs = tuple(tokens)
         for j in range(self.parallel_depth):
             xs = getattr(self, f"parallel_{j}")(xs, sizes, cpes, crpes)
-        stacked = torch.cat([self.norm2(xs[1])[:, :1], self.norm3(xs[2])[:, :1],
-                             self.norm4(xs[3])[:, :1]], dim=1)  # (B, 3, C)
+        stacked = from_first(torch.cat([self.norm2(xs[1])[:, :1], self.norm3(xs[2])[:, :1],
+                                        self.norm4(xs[3])[:, :1]], dim=1))  # (B, 3, C)
         merged = torch.einsum("bsc,s->bc", stacked.float(), self.agg_weight.float()) \
             + self.agg_bias
         return {"logits": self.head(merged.to(stacked.dtype)), "feat": merged}

@@ -15,6 +15,7 @@ from mdvit_tpu_torch.ops.layers import (Conv2d, ConvBN, DWConvBN, dropout2d,
                                         fast_dropout)
 from mdvit_tpu_torch.ops.norm import DomainBatchNorm, NormSpec
 from mdvit_tpu_torch.ops.resize import local_size, resize_bilinear
+from mdvit_tpu_torch.parallel.mesh import spatial_mean
 
 
 class UnetDecodingBlockTransformer(nn.Module):
@@ -107,7 +108,9 @@ class ASPP(nn.Module):
     ``b0``, three dilated 3×3 branches ``b1..b3`` (rates 6, 12, 18) and a
     global-pool branch ``pool``, each conv → BN → ReLU; concat →
     ``project`` (1×1 conv, BN, ReLU) → dropout 0.1. The dropout hashes
-    counters (``fast_dropout``): flax's threefry mask cannot be matched."""
+    counters (``fast_dropout``): flax's threefry mask cannot be matched.
+    Under context parallelism the dilated convs take halos from every rank
+    they reach and the pool is the whole grid's (``spatial_mean``)."""
 
     dropout_ratio = 0.1
 
@@ -135,7 +138,7 @@ class ASPP(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False,
                 gen: torch.Generator | None = None) -> torch.Tensor:
         branches = [self._branch(f"b{i}", x, train) for i in range(self.n_rates + 1)]
-        pooled = self._branch("pool", x.mean(dim=(1, 2), keepdim=True), train)
+        pooled = self._branch("pool", spatial_mean(x)[:, None, None], train)
         branches.append(pooled.expand(-1, x.shape[1], x.shape[2], -1))
         out = self._branch("project", torch.cat(branches, dim=-1), train)
         return fast_dropout(out, self.dropout_ratio, train, gen)
@@ -159,4 +162,4 @@ class DeepLabV3Decoder(nn.Module):
                 gen: torch.Generator | None = None) -> torch.Tensor:
         x = self.aspp(features[-1], train, gen)
         x = F.relu(self.head_bn(self.head_conv(x), None, train))
-        return resize_bilinear(self.head_out(x), self.img_size)
+        return resize_bilinear(self.head_out(x), local_size(self.img_size))

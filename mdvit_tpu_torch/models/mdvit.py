@@ -80,6 +80,10 @@ class TransformerDebranch(nn.Module):
 
 
 class MDViT(FATEncoderDecoder):
+    # what has no row-sharded form (parallel/context.py): nothing, with any
+    # of the four debranches
+    context_parallel_gap: str | None = None
+
     def __init__(self, img_size: int = 256,
                  num_layers: Sequence[int] = (2, 2, 2, 2),
                  embed_dims: Sequence[int] = (64, 128, 320, 512),
@@ -96,9 +100,6 @@ class MDViT(FATEncoderDecoder):
                          bn_domain_stats=bn_domain_stats, dtype=dtype)
         self.num_domains = num_domains
         self.decoder_name = decoder_name
-        # what has no row-sharded form (parallel/context.py)
-        self.context_parallel_gap = ("MDViT's DeepLabV3 debranch (dilated 3x3 convs, a global "
-                                     "pool)" if decoder_name == "DeepLabV3" else None)
         dims = self.embed_dims
         size = (img_size, img_size)
         self.finalconv = nn.Sequential(Conv2d(dims[0], 1, 1, dtype=dtype))

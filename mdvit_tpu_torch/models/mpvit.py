@@ -27,6 +27,7 @@ from torch import nn
 from mdvit_tpu_torch.models.blocks import MHSAStage
 from mdvit_tpu_torch.ops.layers import Conv2d, ConvBN, DWConvBN, Linear
 from mdvit_tpu_torch.ops.norm import make_bn
+from mdvit_tpu_torch.parallel.mesh import spatial_mean
 
 
 class ResBlock(nn.Module):
@@ -48,7 +49,15 @@ class ResBlock(nn.Module):
 
 
 class MPViT(nn.Module):
-    """Multi-path ViT classifier: ``{"logits": (B, num_classes), "feat": (B, C₄)}``."""
+    """Multi-path ViT classifier: ``{"logits": (B, num_classes), "feat": (B, C₄)}``.
+
+    Every layer has its row-sharded form (``parallel/context.py``): the
+    stem's and embeds' strided convs take halo rows, the pool is the whole
+    grid's (``spatial_mean``), so the logits come out the same on every
+    rank."""
+
+    context_parallel_gap = None
+    total_stride = 32  # the stem /4, then /2 at stages 2 to 4
 
     def __init__(self, num_classes: int = 1000, num_path: Sequence[int] = (2, 3, 3, 3),
                  num_layers: Sequence[int] = (1, 2, 4, 1),
@@ -100,7 +109,7 @@ class MPViT(nn.Module):
                     feat.reshape(b, h * w, c), (h, w), None, train, gen)
                 outs.append(tokens.reshape(b, h, w, c))
             x = getattr(self, f"stage{i}_aggregate")(torch.cat(outs, dim=-1), None, train)
-        feat = x.mean(dim=(1, 2))
+        feat = spatial_mean(x)
         return {"logits": self.cls(feat), "feat": feat}
 
 

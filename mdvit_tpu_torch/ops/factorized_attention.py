@@ -23,7 +23,10 @@ of per-chunk partials (m_s, l_s, T_s and, backward, D_s = Σ qᵀg), so each
 direction is split into two ops, ``mdvit::factorized_attention_partials`` →
 ``…_apply`` and ``…_bwd_partials`` → ``…_bwd_apply``, with an all-gather
 of the fp32 workspace between them: every rank's apply folds all ranks'
-partials in rank order, so every rank forms the same T (and dT) bits. The
+partials in rank order, so every rank forms the same T (and dT) bits. Ranks
+may hold different numbers of tokens (uneven row blocks, CoaT's cls row on
+rank 0): each pads its workspace to the most chunks any rank holds with
+empty partials (m = −∞, zero sums), which the folds skip. The
 plain versions (``*_partials_ref``, ``*_apply_ref``) keep the kernels'
 workspace layout (``ATTN_CHUNK_ROWS``, ``attn_bucket``), so a kernel's
 workspace can meet a plain apply and the other way round. One A call under
@@ -32,7 +35,7 @@ a group counts once in ``kernels.LAUNCHES``, at its apply (A′ likewise).
 from __future__ import annotations
 
 import functools
-from typing import Any
+from typing import Any, Sequence
 
 import torch
 import torch.distributed as dist
@@ -513,37 +516,59 @@ def _bwd_apply_fake(k, v, g, ws, ch, scale):
     return tuple(k.new_empty(k.shape) for _ in range(3))
 
 
-def gather_partials(ws: Tensor, group: Any) -> Tensor:
-    """(BH, S·P) → (BH, n·S·P): every rank's partials of each (b, h), in rank
-    order (one all-gather over ``group``)."""
+def pad_partials(ws: Tensor, chunks: int, ch: int, grad: bool) -> Tensor:
+    """(BH, S·P) → (BH, chunks·P): the S partials of each (b, h) followed by
+    empty ones (m = −∞, l = 0, T = 0, D = 0), which every fold skips."""
+    p, w = partial_floats(ch, grad), attn_bucket(ch)
+    s = ws.shape[1] // p
+    if s == chunks:
+        return ws
+    empty = ws.new_zeros((ws.shape[0], chunks - s, p))
+    empty[..., :w] = float("-inf")
+    return torch.cat([ws.reshape(ws.shape[0], s, p), empty], dim=1).reshape(ws.shape[0], -1)
+
+
+def gather_partials(ws: Tensor, group: Any, chunks: int, ch: int, grad: bool) -> Tensor:
+    """(BH, S·P) → (BH, n·chunks·P): every rank's partials of each (b, h), in
+    rank order, each rank's padded to ``chunks`` (the most any rank holds)
+    with empty partials (one all-gather over ``group``)."""
+    ws = pad_partials(ws, chunks, ch, grad)
     parts = [torch.empty_like(ws) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, ws.contiguous(), group=group)
     return torch.stack(parts, dim=1).reshape(ws.shape[0], -1)
+
+
+def _most_chunks(tokens, ch: int, grad: bool) -> int:
+    rows = chunk_rows(ch, grad)
+    return max(-(-t // rows) for t in tokens)
 
 
 class _AttentionCP(torch.autograd.Function):
     """Partials → gather → apply, forward and backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, ch, scale, group):
-        ws = gather_partials(torch.ops.mdvit.factorized_attention_partials(k, v, ch), group)
+    def forward(ctx, q, k, v, ch, scale, group, tokens):
+        ws = gather_partials(torch.ops.mdvit.factorized_attention_partials(k, v, ch), group,
+                             _most_chunks(tokens, ch, False), ch, False)
         ctx.save_for_backward(q, k, v)
-        ctx.ch, ctx.scale, ctx.group = ch, scale, group
+        ctx.ch, ctx.scale, ctx.group, ctx.tokens = ch, scale, group, tokens
         return torch.ops.mdvit.factorized_attention_apply(q, ws, ch, scale)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
         ws = gather_partials(torch.ops.mdvit.factorized_attention_bwd_partials(
-            q, k, v, g, ctx.ch), ctx.group)
+            q, k, v, g, ctx.ch), ctx.group, _most_chunks(ctx.tokens, ctx.ch, True), ctx.ch, True)
         dq, dk, dv = torch.ops.mdvit.factorized_attention_bwd_apply(k, v, g, ws, ctx.ch,
                                                                     ctx.scale)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def factorized_attention_cp(q: Tensor, k: Tensor, v: Tensor, ch: int, scale: float,
-                            group: Any) -> Tensor:
+                            group: Any, tokens: Sequence[int]) -> Tensor:
     """``factorized_attention`` of a block of the tokens held by each rank of
-    ``group`` (every rank the same number, in rank order): the softmax over
-    all ranks' tokens and Σ over them of ksᵀv; returns this rank's rows."""
-    return _AttentionCP.apply(q, k, v, ch, scale, group)
+    ``group``, in rank order, ``tokens[r]`` of them on rank r: the softmax
+    over all ranks' tokens and Σ over them of ksᵀv; returns this rank's
+    rows. The apply folds n × the most chunks any rank holds, the missing
+    ones empty."""
+    return _AttentionCP.apply(q, k, v, ch, scale, group, tuple(tokens))

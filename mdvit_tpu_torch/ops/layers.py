@@ -17,11 +17,11 @@ mask (``fast_dropout``) of a tensor whose axis 1 is row-sharded (tokens or
 grid rows) follows JAX: in ``"stage"`` mode the shard index is folded into
 the seed, ``seed ^ (index · 0x9E3779B9)``, over local counters (JAX's
 ``FastDropout(axis_name=...)``); in ``"e2e"`` mode the counters are the
-unsharded tensor's, sample b, global row ``index·rows + r``, so the masks
-are the unsharded step's rows (JAX's GSPMD path). Per-sample masks
-(DropPath, Dropout2d) are the same on every shard. ``Conv2d`` with a
-window of more than one row exchanges ``padding`` halo rows with its
-neighbours in ``"e2e"`` mode and pads only W.
+unsharded tensor's, sample b, global row (the rank's first row, from the
+row split, + r), so the masks are the unsharded step's rows (JAX's GSPMD
+path). Per-sample masks (DropPath, Dropout2d) are the same on every shard.
+``Conv2d`` with a window of more than one row exchanges ``padding`` halo
+rows with its neighbours in ``"e2e"`` mode and pads only W.
 """
 from __future__ import annotations
 
@@ -118,14 +118,16 @@ def draw_seed(gen: torch.Generator | None) -> int:
 
 def _row_block_counters(shape, row0: int, ctx, device) -> torch.Tensor:
     """Counters of a (B, A, ...) block whose axis 1 is this rank's rows of an
-    unsharded (total batch, A·size, ...) tensor: sample row0 + b, row
-    index·A + a."""
+    unsharded (total batch, Σ ranks' A, ...) tensor: sample row0 + b, row
+    (the rank's first global row) + a."""
     b, a = int(shape[0]), int(shape[1])
     inner = math.prod(int(s) for s in shape[2:])
-    per_sample = a * ctx.size * inner
+    split = ctx.split(a)
+    per_sample = sum(split) * inner
+    start = sum(split[:ctx.index])
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)  # noqa: E731
     idx = ((row0 + ar(b)) * per_sample)[:, None, None] \
-        + ((ctx.index * a + ar(a)) * inner)[None, :, None] + ar(inner)[None, None, :]
+        + ((start + ar(a)) * inner)[None, :, None] + ar(inner)[None, None, :]
     return idx.reshape(tuple(shape))
 
 
@@ -216,12 +218,16 @@ class Conv2d(nn.Conv2d):
         ctx = current_context()
         if ctx is not None and ctx.mode == "e2e" and self.kernel_size[0] > 1:
             # row-sharded: the neighbours' rows replace the row padding (stride
-            # s reads rows s·o − p .. of the rank's rows, s | local rows)
-            if self.dilation[0] * (self.kernel_size[0] - 1) != 2 * padding[0] \
-                    or x.shape[1] % self.stride[0]:
-                raise NotImplementedError("a row-sharded conv needs SAME row padding "
-                                          "and local rows divisible by the stride")
-            x = halo_rows(x, padding[0], ctx)
+            # s reads global rows s·o − p .., s | the rank's first row and rows);
+            # non-overlapping windows (kernel = stride, no padding) need none
+            k, s, p = self.kernel_size[0], self.stride[0], padding[0]
+            same = self.dilation[0] * (k - 1) == 2 * p
+            tiled = p == 0 and k == s
+            if not (same or tiled) or x.shape[1] % s or ctx.start(x.shape[1]) % s:
+                raise NotImplementedError(
+                    "a row-sharded conv needs SAME row padding or non-overlapping windows, "
+                    "and a rank's rows and first row divisible by the stride")
+            x = halo_rows(x, p, ctx)
             padding = (0, padding[1])
         y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(dt), bias,
                      self.stride, padding, self.dilation, self.groups)

@@ -12,10 +12,10 @@ and ``torch.use_deterministic_algorithms`` refuses it.
 
 Under an end-to-end row shard (``parallel.mesh.current_context()``, mode
 ``"e2e"``) ``resize_bilinear``'s H axis is this rank's block of rows of
-grids of ``size`` times the ctx ranks: each rank takes, as a halo, the input
-rows its output rows reach, and applies its rows of the global row matrix
-restricted to them; ``local_size`` turns a global target size into the
-rank's.
+grids split over the ctx ranks as ``RowShard.split`` says (unequal blocks
+allowed): each rank takes, as a halo, the input rows its output rows reach,
+and applies its rows of the global row matrix restricted to them;
+``local_size`` turns a global target size into the rank's.
 """
 from __future__ import annotations
 
@@ -71,41 +71,41 @@ def _matrix(in_size: int, out_size: int, device: torch.device,
                            lambda: make(in_size, out_size), device)
 
 
-def _row_block_matrix(in_rows: int, out_rows: int, n: int, index: int):
-    """(halo, M) of rank ``index`` of ``n`` resizing its ``in_rows`` rows of a
-    grid of in_rows·n to its ``out_rows`` of out_rows·n: the halo every rank
-    needs (the largest reach outside its own input block), and the rank's
-    (out_rows, in_rows + 2·halo) rows of the global matrix over its halo'd
-    input rows (zero columns past the global edges)."""
-    m = resize_matrix(in_rows * n, out_rows * n)
+def _row_block_matrix(rows_in: tuple, rows_out: tuple, index: int):
+    """(halo, M) of rank ``index`` resizing its block of a grid split
+    ``rows_in`` over the ranks to its block of one split ``rows_out``: the
+    halo every rank needs (the largest reach outside its own input block),
+    and the rank's rows of the global matrix over its halo'd input rows
+    (zero columns past the global edges)."""
+    m = resize_matrix(sum(rows_in), sum(rows_out))
+    first_in, first_out = np.cumsum((0,) + rows_in), np.cumsum((0,) + rows_out)
     halo = 0
-    for r in range(n):
-        cols = np.nonzero(m[r * out_rows:(r + 1) * out_rows].any(axis=0))[0]
-        halo = max(halo, r * in_rows - int(cols.min()), int(cols.max()) - ((r + 1) * in_rows - 1))
+    for r in range(len(rows_in)):
+        cols = np.nonzero(m[first_out[r]:first_out[r + 1]].any(axis=0))[0]
+        halo = max(halo, int(first_in[r] - cols.min()), int(cols.max() - (first_in[r + 1] - 1)))
     padded = np.pad(m, ((0, 0), (halo, halo)))
-    lo = index * in_rows
+    lo = int(first_in[index])
     return halo, np.ascontiguousarray(
-        padded[index * out_rows:(index + 1) * out_rows, lo:lo + in_rows + 2 * halo])
+        padded[first_out[index]:first_out[index + 1], lo:lo + rows_in[index] + 2 * halo])
 
 
 def local_size(size: Sequence[int]) -> tuple[int, int]:
-    """A global (H, W) target as this rank's (H / ctx ranks, W) under an
+    """A global (H, W) target as this rank's (rows of H, W) under an
     end-to-end row shard; as it is otherwise."""
     ctx = current_context()
     h, w = int(size[0]), int(size[1])
     if ctx is None or ctx.mode != "e2e":
         return h, w
-    if h % ctx.size:
-        raise ValueError(f"{h} rows do not split over {ctx.size} ctx ranks")
-    return h // ctx.size, w
+    return ctx.local_rows(h), w
 
 
 def _resize_rows_sharded(y: torch.Tensor, h: int, ctx) -> torch.Tensor:
     """The H pass of ``resize_bilinear`` on this rank's rows (fp32 (B, H_in,
     W, C) → (B, h, W, C))."""
     b, hi, w, c = y.shape
-    halo, m = _row_block_matrix(hi, h, ctx.size, ctx.index)
-    mat = device_constant(("resize_rows", hi, h, ctx.size, ctx.index), lambda: m, y.device)
+    rows_in, rows_out = ctx.split(hi), ctx.split(h)
+    halo, m = _row_block_matrix(rows_in, rows_out, ctx.index)
+    mat = device_constant(("resize_rows", rows_in, rows_out, ctx.index), lambda: m, y.device)
     y = halo_rows(y, halo, ctx)
     return (mat @ y.reshape(b, hi + 2 * halo, w * c)).reshape(b, h, w, c)
 

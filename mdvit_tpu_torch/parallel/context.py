@@ -21,22 +21,30 @@ Two paths, as in JAX:
   shard index into its seed over local counters; DropPath keeps one
   per-sample mask on every shard.
 * end to end (``model_apply_context_parallel``,
-  ``make_context_parallel_train_step``): BASE's and MDViT's whole forward
-  with the image rows sharded (JAX's GSPMD path). The convs exchange
-  ``(k−1)//2`` halo rows and pad only W, the BatchNorms sum their moments
-  over every rank of the grid, resizes take the input rows their output rows
-  need as a halo, spatial means are summed over the ctx group, and dropout
-  hashes the unsharded step's counters, so the masks are the unsharded
-  masks' rows.
+  ``make_context_parallel_train_step``): the whole forward of BASE and its
+  family, MDViT with each of its four debranches, and (forward only) the
+  MPViT, CoaT-Lite and CoaT classifiers, with the image rows sharded (JAX's
+  GSPMD path). The convs exchange ``(k−1)//2`` halo rows and pad only W
+  (non-overlapping patch embeds need none), the BatchNorms sum their
+  moments over every rank of the grid, resizes take the input rows their
+  output rows need as a halo, spatial means are summed over the ctx group,
+  and dropout hashes the unsharded step's counters, so the masks are the
+  unsharded masks' rows. CoaT's cls row of each scale lives on ctx rank 0
+  (its attention partials count it once); the head reads it there
+  (``from_first``).
 
 The (data, ctx) grid (``make_dp_context_mesh``) composes both: rank r sits
 at (r // n_ctx, r % n_ctx); its ctx group is its grid row, its data group
 its column, and the batch's sums (BN moments, loss terms, gradients) run
 over the whole grid.
 
-Port narrowing: JAX's GSPMD pads uneven shards; here every grid's rows must
-split evenly, H % (total stride · n_ctx) == 0 (256² at n ≤ 8, 512² at
-n ≤ 16).
+Uneven rows: the deepest grid's G rows split as evenly as they go (the
+first G mod n ranks one row more; JAX's guard keeps G ≥ n, so no rank is
+empty), and every shallower grid's split is that split scaled by its
+stride, so strided windows line up with the rank boundaries. The gathers
+pad blocks to the largest and trim; A's and A′'s workspaces pad to the
+most chunks any rank holds, with empty partials. The one narrowing left
+against JAX: H must be a multiple of the model's total stride.
 """
 from __future__ import annotations
 
@@ -48,8 +56,8 @@ import torch.distributed as dist
 
 from mdvit_tpu_torch.device import deterministic, no_tf32
 from mdvit_tpu_torch.models.base import split_seg
-from mdvit_tpu_torch.parallel.mesh import (RowShard, Shard, all_reduce_sum, gather_rows,
-                                           row_sharded, sharded)
+from mdvit_tpu_torch.parallel.mesh import (RowShard, Shard, all_reduce_sum, balanced_rows,
+                                           gather_rows, row_sharded, sharded)
 from mdvit_tpu_torch.train.losses import seg_loss_from_sums, seg_loss_sums
 
 # total stem + patch-embed downsampling to the deepest (bridge) grid of
@@ -152,16 +160,16 @@ def stage_apply_context_parallel(stage, x: torch.Tensor, size, group: Any,
 def _check_model(model) -> None:
     """Raise unless every layer of ``model`` has its row-sharded form. A model
     says so itself: its ``context_parallel_gap`` names what has none (None:
-    nothing; BASE and its family, MDViT). A model without the attribute has
-    not been ported to row shards."""
+    nothing; BASE and its family, MDViT, MPViT, CoaT). A model without the
+    attribute has not been ported to row shards."""
     gap = getattr(model, "context_parallel_gap", type(model).__name__)
     if gap is not None:
-        raise NotImplementedError(f"context parallelism of {gap} is not ported "
-                                  "(BASE, its family and MDViT are)")
+        raise NotImplementedError(f"context parallelism of {gap} is not ported (BASE, its "
+                                  "family, MDViT, MPViT, CoaT-Lite and CoaT are)")
 
 
 def _check_min_grid(model, shape, mesh: ContextMesh) -> None:
-    """JAX's two guards, with their words, and the port's even-rows rule."""
+    """JAX's two guards, with their words, and the port's stride rule."""
     n_ctx = mesh.n_ctx
     stride = getattr(model, "total_stride", BASE_TOTAL_STRIDE)
     min_grid = shape[1] // stride
@@ -170,11 +178,10 @@ def _check_min_grid(model, shape, mesh: ContextMesh) -> None:
             f"context parallelism needs every sharded grid dim >= the ctx axis ({n_ctx}); "
             f"input H={shape[1]} reaches a {min_grid}x{min_grid} deepest grid (total "
             f"stride {stride}); use img_size >= {stride * n_ctx} or a smaller ctx axis")
-    if shape[1] % (stride * n_ctx):
+    if shape[1] % stride:
         raise ValueError(
-            f"context parallelism here splits every grid's rows evenly over the ctx axis "
-            f"({n_ctx}): input H={shape[1]} is not a multiple of {stride * n_ctx} (total "
-            f"stride {stride} x ctx)")
+            f"context parallelism here scales the deepest grid's row split by each grid's "
+            f"stride: input H={shape[1]} is not a multiple of the total stride {stride}")
     if mesh.dp:
         n_data = mesh.n_data
         if shape[0] % n_data:
@@ -188,51 +195,67 @@ def _check_min_grid(model, shape, mesh: ContextMesh) -> None:
 
 
 @contextlib.contextmanager
-def _e2e(mesh: ContextMesh, batch: int) -> Iterator[tuple[int, int]]:
-    """The end-to-end shard of a ``batch``-row global batch: the batch's sums
-    over the grid, this rank's batch rows and image rows. Yields (first
-    batch row, batch rows)."""
-    per = batch // mesh.n_data
+def _e2e(model, mesh: ContextMesh, shape) -> Iterator[tuple[int, int, RowShard | None]]:
+    """The end-to-end shard of a global (B, H, ...) input of ``shape``: the
+    batch's sums over the grid, this rank's batch rows, and its image rows,
+    the deepest grid's rows balanced over the ctx ranks. Yields (first batch
+    row, batch rows, the row shard; None without a ctx group)."""
+    per = shape[0] // mesh.n_data
     row0 = mesh.data_index * per
     grid = mesh.grid if mesh.n_ctx * mesh.n_data > 1 else None
-    rows = None if mesh.ctx is None else RowShard(mesh.ctx, mesh.ctx_index, mesh.n_ctx, "e2e")
-    with sharded(Shard(grid, row0, batch)), row_sharded(rows):
-        yield row0, per
+    rows = None
+    if mesh.ctx is not None:
+        stride = getattr(model, "total_stride", BASE_TOTAL_STRIDE)
+        rows = RowShard(mesh.ctx, mesh.ctx_index, mesh.n_ctx, "e2e",
+                        balanced_rows(shape[1] // stride, mesh.n_ctx))
+    with sharded(Shard(grid, row0, shape[0])), row_sharded(rows):
+        yield row0, per, rows
 
 
-def _local(t: torch.Tensor, mesh: ContextMesh, row0: int, per: int) -> torch.Tensor:
+def _local(t: torch.Tensor, rows: RowShard | None, row0: int, per: int) -> torch.Tensor:
     """This rank's batch rows and image rows of a global (B, H, ...) tensor."""
-    h_loc = t.shape[1] // mesh.n_ctx
-    return t[row0:row0 + per, mesh.ctx_index * h_loc:(mesh.ctx_index + 1) * h_loc]
+    t = t[row0:row0 + per]
+    if rows is None:
+        return t
+    h = rows.local_rows(t.shape[1])
+    start = rows.start(h)
+    return t[:, start:start + h]
 
 
-def _gather_out(t: torch.Tensor, mesh: ContextMesh) -> torch.Tensor:
-    t = gather_rows(t, mesh.ctx if mesh.n_ctx > 1 else None, dim=1)
+def _gather_out(t: torch.Tensor, mesh: ContextMesh, rows: RowShard | None) -> torch.Tensor:
+    if mesh.n_ctx > 1:
+        t = gather_rows(t, mesh.ctx, dim=1, sizes=rows.split(t.shape[1]))
+    return _gather_batch(t, mesh)
+
+
+def _gather_batch(t: torch.Tensor, mesh: ContextMesh) -> torch.Tensor:
     return gather_rows(t, mesh.data if mesh.n_data > 1 else None, dim=0)
 
 
-def model_apply_context_parallel(model, x: torch.Tensor, domain_onehot: torch.Tensor,
+def model_apply_context_parallel(model, x: torch.Tensor, domain_onehot: torch.Tensor | None,
                                  group: Any, train: bool = False,
                                  gen: torch.Generator | None = None, **kwargs) -> dict:
     """The whole model's forward with the image rows (and, on a DP×CP grid,
     the batch) of the global (B, H, W, 3) ``x`` sharded over ``group`` (a
     process group: a 1-D ctx mesh; or a ``ContextMesh``). Every rank passes
     the same ``x``; the outputs are gathered, the same on every rank:
-    ``seg`` (B, H, W, 1) (MDViT: the (logits, aux) pair) and ``feat``."""
+    ``seg`` (B, H, W, 1) (MDViT: the (logits, aux) pair), ``feat`` and, for
+    the classifiers, ``logits``."""
     mesh = _as_mesh(group)
     _check_model(model)
     _check_min_grid(model, x.shape, mesh)
-    with _e2e(mesh, x.shape[0]) as (row0, per):
-        out = model(_local(x, mesh, row0, per), domain_onehot[row0:row0 + per], train=train,
-                    gen=gen, **kwargs)
+    with _e2e(model, mesh, x.shape) as (row0, per, rows):
+        onehot = None if domain_onehot is None else domain_onehot[row0:row0 + per]
+        out = model(_local(x, rows, row0, per), onehot, train=train, gen=gen, **kwargs)
     res = dict(out)
     seg = out.get("seg")
     if isinstance(seg, tuple):
-        res["seg"] = tuple(None if s is None else _gather_out(s, mesh) for s in seg)
+        res["seg"] = tuple(None if s is None else _gather_out(s, mesh, rows) for s in seg)
     elif seg is not None:
-        res["seg"] = _gather_out(seg, mesh)
-    if out.get("feat") is not None:
-        res["feat"] = gather_rows(out["feat"], mesh.data if mesh.n_data > 1 else None, dim=0)
+        res["seg"] = _gather_out(seg, mesh, rows)
+    for key in ("feat", "logits"):
+        if out.get(key) is not None:
+            res[key] = _gather_batch(out[key], mesh)
     return res
 
 
@@ -259,11 +282,11 @@ def make_context_parallel_train_step(model, optimizer, group: Any):
     def step(x: torch.Tensor, y: torch.Tensor, onehot: torch.Tensor,
              gen: torch.Generator | None = None) -> torch.Tensor:
         _check_min_grid(model, x.shape, mesh)
-        with _e2e(mesh, x.shape[0]) as (row0, per):
-            out = model(_local(x, mesh, row0, per), onehot[row0:row0 + per], train=True,
+        with _e2e(model, mesh, x.shape) as (row0, per, rows):
+            out = model(_local(x, rows, row0, per), onehot[row0:row0 + per], train=True,
                         gen=gen)
             logits = split_seg(out["seg"])[0]
-            sums = seg_loss_sums(logits, _local(y, mesh, row0, per))
+            sums = seg_loss_sums(logits, _local(y, rows, row0, per))
             loss = seg_loss_from_sums(all_reduce_sum(sums, mesh.grid if size > 1 else None))
         grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
         if size > 1:

@@ -23,14 +23,16 @@ grids instead: ``current_context()`` is the ``RowShard`` that
 convs' halos, the factorized attention's softmax and KᵀV, dropout's
 counters, spatial means, resizes and convs in the end-to-end path). The
 row-shard collectives those layers call live here too: the halo exchange
-(``halo_exchange_rows``, ``halo_rows``), ``gather_rows`` and
-``spatial_mean``.
+(``halo_exchange_rows``, ``halo_rows``), ``gather_rows``, ``spatial_mean``
+and ``from_first`` (CoaT's cls rows, held by ctx rank 0). The ranks' blocks
+may differ in height (``RowShard.rows``, ``balanced_rows``): the gathers pad
+every block to the largest and trim.
 """
 from __future__ import annotations
 
 import contextlib
 import os
-from typing import Any, Iterator, NamedTuple
+from typing import Any, Iterator, NamedTuple, Sequence
 
 import torch
 import torch.distributed as dist
@@ -194,13 +196,51 @@ class RowShard(NamedTuple):
     ``"stage"`` (one ``MHSAStage`` sharded; dropout folds ``index`` into its
     seed over local counters, as JAX's ``shard_map`` path does) or ``"e2e"``
     (the whole model; dropout hashes the unsharded masks' global counters).
-    Every grid splits evenly, so a grid of ``h`` local rows starts at global
-    row ``index · h``."""
+
+    ``rows`` is each rank's share of the deepest grid's rows (empty: one
+    each, the even split of the stage path). Every grid is that split scaled
+    by its stride to the deepest grid, so a rank holding ``h`` rows of some
+    grid finds every rank's rows of it from ``h`` alone (``split``), and
+    every rank's first row at a level is a multiple of that level's stride.
+    A tensor of row-major tokens (``h·w`` a rank) splits the same way."""
 
     group: Any
     index: int
     size: int
     mode: str = "stage"
+    rows: tuple = ()
+
+    @property
+    def units(self) -> tuple:
+        return self.rows or (1,) * self.size
+
+    def split(self, h: int) -> tuple:
+        """Every rank's rows of the grid (or token tensor) of which this rank
+        holds ``h``, in rank order."""
+        units = self.units
+        level, rem = divmod(h, units[self.index])
+        if rem or level == 0:
+            raise ValueError(f"{h} local rows are no level of the row split {units}")
+        return tuple(level * u for u in units)
+
+    def start(self, h: int) -> int:
+        """The global index of this rank's first of its ``h`` rows."""
+        return sum(self.split(h)[:self.index])
+
+    def local_rows(self, total: int) -> int:
+        """This rank's rows of a grid of ``total`` rows."""
+        units = self.units
+        level, rem = divmod(total, sum(units))
+        if rem or level == 0:
+            raise ValueError(f"{total} rows are no level of the row split {units}")
+        return level * units[self.index]
+
+
+def balanced_rows(total: int, n: int) -> tuple:
+    """``total`` rows over ``n`` ranks as evenly as they go: the first
+    ``total % n`` ranks one more."""
+    per, extra = divmod(total, n)
+    return tuple(per + (r < extra) for r in range(n))
 
 
 _context: RowShard | None = None
@@ -228,6 +268,18 @@ def _gather(t: torch.Tensor, group: Any) -> list[torch.Tensor]:
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t.contiguous(), group=group)
     return parts
+
+
+def _gather_blocks(t: torch.Tensor, group: Any, sizes: Sequence[int], dim: int = 1
+                   ) -> list[torch.Tensor]:
+    """Every rank's block of ``t`` along ``dim``, ``sizes`` long in rank
+    order: padded to the largest, gathered, trimmed."""
+    most = max(sizes)
+    if most > t.shape[dim]:
+        pad = list(t.shape)
+        pad[dim] = most - t.shape[dim]
+        t = torch.cat([t, t.new_zeros(pad)], dim=dim)
+    return [p.narrow(dim, 0, s) for p, s in zip(_gather(t, group), sizes)]
 
 
 class _HaloRows(torch.autograd.Function):
@@ -272,67 +324,106 @@ def halo_exchange_rows(x: torch.Tensor, halo: int, group: Any) -> torch.Tensor:
 
 class _HaloFromGrid(torch.autograd.Function):
     """``halo`` rows around this rank's block when they reach past its
-    neighbours (deep grids of the end-to-end path, fewer local rows than the
-    halo): the whole grid gathered, zero-padded and cut; the backward adds
-    every rank's halo'd gradient into the padded grid (one all-reduce) and
-    keeps this rank's rows."""
+    neighbours (deep grids of the end-to-end path, fewer rows on some rank
+    than the halo): the whole grid gathered (blocks of ``sizes`` rows),
+    zero-padded and cut; the backward adds every rank's halo'd gradient into
+    the padded grid (one all-reduce) and keeps this rank's rows."""
 
     @staticmethod
-    def forward(ctx, x, halo, group, index):
-        ctx.halo, ctx.group, ctx.index, ctx.rows = halo, group, index, x.shape[1]
-        grid = torch.cat(_gather(x, group), dim=1)
+    def forward(ctx, x, halo, group, index, sizes):
+        ctx.halo, ctx.group, ctx.index, ctx.sizes = halo, group, index, sizes
+        grid = torch.cat(_gather_blocks(x, group, sizes), dim=1)
         padded = torch.nn.functional.pad(grid, (0, 0, 0, 0, halo, halo))
-        r0 = index * x.shape[1]
+        r0 = sum(sizes[:index])
         return padded[:, r0:r0 + x.shape[1] + 2 * halo].contiguous()
 
     @staticmethod
     def backward(ctx, g):
-        h, rows = ctx.halo, ctx.rows
-        r0 = ctx.index * rows
-        n = dist.get_world_size(ctx.group)
-        full = g.new_zeros((g.shape[0], rows * n + 2 * h) + tuple(g.shape[2:]))
+        h, sizes = ctx.halo, ctx.sizes
+        r0, rows = sum(sizes[:ctx.index]), sizes[ctx.index]
+        full = g.new_zeros((g.shape[0], sum(sizes) + 2 * h) + tuple(g.shape[2:]))
         full[:, r0:r0 + rows + 2 * h] = g
         dist.all_reduce(full, group=ctx.group)
-        return full[:, h + r0:h + r0 + rows], None, None, None
+        return full[:, h + r0:h + r0 + rows], None, None, None, None
 
 
 def halo_rows(x: torch.Tensor, halo: int, ctx: RowShard) -> torch.Tensor:
     """``halo_exchange_rows`` over the row shard's group; in ``"e2e"`` mode
-    also where the halo reaches past the neighbours (``halo`` above the local
-    rows), as GSPMD's halos do in JAX."""
-    if ctx.mode == "e2e" and 0 < x.shape[1] < halo:
-        return _HaloFromGrid.apply(x, halo, ctx.group, ctx.index)
+    also where the halo reaches past the neighbours (some rank holds fewer
+    rows than ``halo``), as GSPMD's halos do in JAX."""
+    if halo == 0:
+        return x
+    if ctx.mode == "e2e":
+        sizes = ctx.split(x.shape[1])
+        if min(sizes) < halo:
+            return _HaloFromGrid.apply(x, halo, ctx.group, ctx.index, sizes)
     return halo_exchange_rows(x, halo, ctx.group)
 
 
 class _GatherRows(torch.autograd.Function):
-    """Every rank's rows, concatenated on axis ``dim``; the backward takes this
-    rank's rows of the gradient (each rank holds the same function of the
-    whole, as JAX's replicated output)."""
+    """Every rank's rows, concatenated on axis ``dim`` (blocks of ``sizes``
+    rows); the backward takes this rank's rows of the gradient (each rank
+    holds the same function of the whole, as JAX's replicated output)."""
 
     @staticmethod
-    def forward(ctx, x, group, dim):
+    def forward(ctx, x, group, dim, sizes):
         ctx.index, ctx.rows, ctx.dim = dist.get_rank(group), x.shape[dim], dim
-        return torch.cat(_gather(x, group), dim=dim)
+        ctx.start = sum(sizes[:ctx.index])
+        return torch.cat(_gather_blocks(x, group, sizes, dim), dim=dim)
 
     @staticmethod
     def backward(ctx, g):
-        return g.narrow(ctx.dim, ctx.index * ctx.rows, ctx.rows), None, None
+        return g.narrow(ctx.dim, ctx.start, ctx.rows), None, None, None
 
 
-def gather_rows(x: torch.Tensor, group: Any, dim: int = 1) -> torch.Tensor:
+def gather_rows(x: torch.Tensor, group: Any, dim: int = 1,
+                sizes: Sequence[int] | None = None) -> torch.Tensor:
     """The whole of a tensor whose axis ``dim`` is split over ``group`` in rank
-    order; ``x`` itself without a group."""
+    order, each rank's block ``sizes`` long (None: all as long as this
+    rank's); ``x`` itself without a group."""
     if group is None:
         return x
-    return _GatherRows.apply(x, group, dim)
+    if sizes is None:
+        sizes = (x.shape[dim],) * dist.get_world_size(group)
+    return _GatherRows.apply(x, group, dim, tuple(sizes))
 
 
 def spatial_mean(x: torch.Tensor) -> torch.Tensor:
     """Mean of (B, H, W, C) over H and W; under an end-to-end row shard, over
-    the whole grid (the ranks' sums added)."""
+    the whole grid (the ranks' sums added, divided by the global pixels)."""
     ctx = current_context()
     if ctx is None or ctx.mode != "e2e":
         return x.mean(dim=(1, 2))
-    total = x.shape[1] * x.shape[2] * ctx.size
+    total = sum(ctx.split(x.shape[1])) * x.shape[2]
     return all_reduce_sum(x.float().sum(dim=(1, 2)), ctx.group).div(total).to(x.dtype)
+
+
+class _FromFirst(torch.autograd.Function):
+    """Ctx rank 0's tensor on every rank of ``group`` (a broadcast); the
+    backward sums the ranks' gradients into rank 0's input and gives the
+    others' inputs zeros, so every rank's backward still reaches the
+    collectives behind its input."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group: Any, index: int) -> torch.Tensor:
+        ctx.group, ctx.index = group, index
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.broadcast(out, dist.get_global_rank(group, 0), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return (g if ctx.index == 0 else torch.zeros_like(g)), None, None
+
+
+def from_first(x: torch.Tensor) -> torch.Tensor:
+    """Under an end-to-end row shard, ctx rank 0's ``x`` on every rank, the
+    backward summed into rank 0's (``_FromFirst``: the other ranks' values
+    never enter it, so a non-finite one there changes nothing). ``x``
+    itself otherwise."""
+    ctx = current_context()
+    if ctx is None or ctx.mode != "e2e" or ctx.group is None:
+        return x
+    return _FromFirst.apply(x, ctx.group, ctx.index)

@@ -196,11 +196,16 @@ def test_stage_dropout_masks_match_jax_shard_map():
 
 
 def test_even_rows_rule():
-    """The port's narrowing of JAX's guard: every grid's rows split evenly
-    over the ctx axis (H a multiple of total stride · n_ctx)."""
+    """The even-rows rule is gone: JAX's guards alone remain. 96² over 2
+    ranks (a 3-row deepest grid, 2 + 1) is accepted, 32² over 2 (a 1-row
+    deepest grid) refused, and on a (data 2, ctx 2) grid the 1×1-tile rule
+    refuses batch/data = 1 with deepest grid // ctx = 3 // 2 = 1."""
     mesh = ContextMesh(None, None, None, 0, 0, 2, 1)
+    _check_min_grid(None, (1, 96, 96, 3), mesh)
     _check_min_grid(None, (1, 128, 128, 3), mesh)
     with pytest.raises(ValueError, match="ctx"):
-        _check_min_grid(None, (1, 96, 96, 3), mesh)
-    with pytest.raises(ValueError, match="ctx"):
         _check_min_grid(None, (1, 32, 32, 3), mesh)
+    grid = ContextMesh(None, None, None, 0, 0, 2, 2, dp=True)
+    _check_min_grid(None, (4, 96, 96, 3), grid)
+    with pytest.raises(ValueError, match="DP x CP"):
+        _check_min_grid(None, (2, 96, 96, 3), grid)

@@ -109,16 +109,16 @@ def test_base_forward_and_step_on_two_ranks(tmp_path):
         _grads_close(r["grads"], ref["grads"])
 
 
-@pytest.mark.parametrize("name", ["SwinUnet", "MDViT_DeepLabV3"])
+@pytest.mark.parametrize("name", ["SwinUnet", "UTNet"])
 def test_other_models_raise(name):
     """A model whose layers have no row-sharded form here names itself."""
     from mdvit_tpu_torch.models.registry import build_model
     from mdvit_tpu_torch.parallel.context import _check_model
 
-    if name == "MDViT_DeepLabV3":
-        model = build_model("MDViT", img_size=64, device="cpu", decoder_name="DeepLabV3", **TINY)
+    if name == "UTNet":
+        model = build_model(name, img_size=64, device="cpu", base_chan=4, reduce_size=2)
     else:
         model = build_model(name, img_size=64, device="cpu", embed_dim=24, depths=(1, 1, 1, 1),
                             num_heads=(1, 1, 1, 1))
-    with pytest.raises(NotImplementedError, match="DeepLabV3" if "Deep" in name else name):
+    with pytest.raises(NotImplementedError, match=name):
         _check_model(model)

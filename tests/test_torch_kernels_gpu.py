@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cp
 from mdvit_tpu_torch.device import no_tf32
 from mdvit_tpu_torch.ops import dwconv, kernels
 from mdvit_tpu_torch.ops import factorized_attention as fa
@@ -781,6 +782,42 @@ def test_attention_gathered_partials_match_single_call_on_card(b, n, c, ch, dtyp
     record_property("vs_plain_out_dq_dk_dv", vs_plain)
     assert max(vs_single) <= (1e-6 if dtype == torch.float32 else 2 ** -7)
     assert max(vs_plain) <= (1e-5 if dtype == torch.float32 else 2 ** -7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,ch,tokens", [(7680 + 6720, 64, 8, (7680, 6720)),
+                                           (480 + 420, 320, 40, (480, 420)),
+                                           (430, 96, 12, (300, 129, 1))])
+def test_attention_padded_partials_fold_to_nothing_on_card(n, c, ch, tokens, dtype):
+    """Blocks of unequal token counts (BASE's 120² and 30² grids at 480²
+    split 8 : 7, and a one-token block): each block's workspace padded to the
+    most chunks with empty partials, last or first in its block, so empty
+    partials sit inside the fold; both applies give the bits they give on
+    the unpadded workspaces (an empty partial adds exact zeros)."""
+    _need_card()
+    gen = torch.Generator().manual_seed(n + c)
+    q, k, v, g = (torch.randn(2, n, c, generator=gen).mul(s).cuda().to(dtype)
+                  for s in (1.0, 3.0, 1.0, 1.0))
+    scale = ch ** -0.5
+    cuts = np.cumsum((0,) + tokens)
+    rows = [slice(int(cuts[i]), int(cuts[i + 1])) for i in range(len(tokens))]
+    ops = torch.ops.mdvit
+    fwd = [ops.factorized_attention_partials(k[:, r], v[:, r], ch) for r in rows]
+    bwd = [ops.factorized_attention_bwd_partials(q[:, r], k[:, r], v[:, r], g[:, r], ch)
+           for r in rows]
+    assert len({w.shape[1] for w in fwd}) > 1 or len({w.shape[1] for w in bwd}) > 1
+    outs = {}
+    for where in ("none", "last", "first"):
+        ws = torch_cp.padded_workspace(fwd, tokens, ch, False, where)
+        wsb = torch_cp.padded_workspace(bwd, tokens, ch, True, where)
+        outs[where] = [ops.factorized_attention_apply(q[:, r], ws, ch, scale) for r in rows] + [
+            d for r in rows for d in ops.factorized_attention_bwd_apply(k[:, r], v[:, r], g[:, r],
+                                                                        wsb, ch, scale)]
+    for where in ("last", "first"):
+        for got, want in zip(outs[where], outs["none"]):
+            assert bool(torch.isfinite(got.float()).all())
+            assert torch.equal(got, want), where
 
 
 @pytest.mark.gpu

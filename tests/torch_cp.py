@@ -5,18 +5,50 @@ Imports only torch and the port, so the ranks that ``torch_dp.spawn`` starts
 never import JAX. Each worker reads its inputs from a ``torch.save``d spec
 and writes what it computed to ``<out>/rank<r>.pt``.
 """
+from unittest import mock
+
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from mdvit_tpu_torch.models.blocks import MHSAStage
+from mdvit_tpu_torch.models.coat import CoaT
+from mdvit_tpu_torch.models.mpvit import MPViT
 from mdvit_tpu_torch.models.registry import build_model
+from mdvit_tpu_torch.ops import factorized_attention as fa
+from mdvit_tpu_torch.ops import layers
+from mdvit_tpu_torch.ops.layers import Conv2d
+from mdvit_tpu_torch.ops.resize import local_size, resize_bilinear
 from mdvit_tpu_torch.parallel.context import (make_context_mesh,
                                               make_context_parallel_train_step,
                                               make_dp_context_mesh,
                                               model_apply_context_parallel,
                                               stage_apply_context_parallel)
-from mdvit_tpu_torch.parallel.mesh import halo_exchange_rows
+from mdvit_tpu_torch.parallel.mesh import (RowShard, from_first, gather_rows,
+                                           halo_exchange_rows, halo_rows, row_sharded,
+                                           spatial_mean)
 from torch_dp import save
+
+
+def padded_workspace(blocks, tokens, ch: int, grad: bool, where: str) -> torch.Tensor:
+    """The gathered workspace of ranks holding ``tokens`` rows each: every
+    rank's (BH, S_r·P) partials ``blocks`` padded to the most chunks any rank
+    holds with empty partials (``pad_partials``), ``where`` "last" or
+    "first" in the rank's block, concatenated a (b, h) in rank order (what
+    the all-gather gives); "none" concatenates them unpadded."""
+    if where == "none":
+        return torch.cat(blocks, 1)
+    most = max(-(-t // fa.chunk_rows(ch, grad)) for t in tokens)
+    p = fa.partial_floats(ch, grad)
+    out = []
+    for ws in blocks:
+        padded = fa.pad_partials(ws, most, ch, grad)
+        if where == "first":
+            own = ws.shape[1] // p
+            b3 = padded.reshape(ws.shape[0], most, p)
+            padded = torch.cat([b3[:, own:], b3[:, :own]], 1).reshape(ws.shape[0], -1)
+        out.append(padded)
+    return torch.stack(out, 1).reshape(blocks[0].shape[0], -1)
 
 
 def halo_worker(rank: int, spec_path: str, out_dir: str) -> None:
@@ -75,12 +107,16 @@ def e2e_worker(rank: int, spec_path: str, out_dir: str) -> None:
     """On the group of all ranks (or the (data, ctx) grid ``spec["grid"]``):
     the eval forward; with ``spec["train_forward"]``, the train-mode forward
     (the model's dropout, generator seed 7); with ``spec["train"]``, one CP
-    train step (``train_step``)."""
+    train step (``train_step``); with ``spec["train_no_drop"]``, one more
+    from the same state with dropout and stochastic depth off (under
+    ``"no_drop"``)."""
     spec = torch.load(spec_path, weights_only=False)
     mesh = _mesh(spec)
     res = forwards(spec, mesh)
     if spec.get("train"):
         res.update(train_step(spec, mesh))
+    if spec.get("train_no_drop"):
+        res["no_drop"] = train_step(spec, mesh, drop_rate=0.0, drop_path_rate=0.0)
     save(rank, out_dir, res)
 
 
@@ -101,10 +137,11 @@ def forwards(spec: dict, mesh) -> dict:
     return res
 
 
-def train_step(spec: dict, mesh) -> dict:
+def train_step(spec: dict, mesh, **over) -> dict:
     """One ``make_context_parallel_train_step`` (AdamW 1e-4, wd 0.05) from the
-    spec's state; ``mesh`` None is the unsharded step."""
-    model = _model(spec).train()
+    spec's state (the model's arguments ``over`` changed); ``mesh`` None is
+    the unsharded step."""
+    model = _model(spec, **over).train()
     opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=0.05)
     step = make_context_parallel_train_step(model, opt, mesh)
     loss = step(spec["x"], spec["y"], spec["dom"], torch.Generator().manual_seed(9))
@@ -128,3 +165,64 @@ def guard_worker(rank: int, spec_path: str, out_dir: str) -> None:
         except ValueError as e:
             msgs[name] = str(e)
     save(rank, out_dir, msgs)
+
+
+def blocks_worker(rank: int, spec_path: str, out_dir: str) -> None:
+    """This rank's block (``spec["rows"]`` of the deepest grid, scaled by
+    ``spec["level"]``) of ``spec["full"]`` through the row-shard pieces in
+    ``"e2e"`` mode: halos of 1 row (the neighbours') and of ``spec["deep"]``
+    rows (past them), the gather, the spatial mean, a resize to half and to
+    twice the rows, a stride-2 3×3 conv, rank 0's first row on every rank
+    (``from_first``; also with NaN in the other ranks' rows) and an element
+    dropout mask; and the gradient of Σ out·g of each, g this rank's
+    cotangent."""
+    spec = torch.load(spec_path, weights_only=False)
+    n = dist.get_world_size()
+    ctx = RowShard(dist.group.WORLD, rank, n, "e2e", spec["rows"])
+    full, cot = spec["full"], spec["cotangents"][rank]
+    h = ctx.local_rows(full.shape[1])
+    start = ctx.start(h)
+    x = full[:, start:start + h].clone().requires_grad_()
+    conv = Conv2d(full.shape[3], 4, 3, 2, 1)
+    conv.load_state_dict(spec["conv"])
+    res = {"start": start, "split": ctx.split(h)}
+    with row_sharded(ctx):
+        outs = {"halo1": halo_rows(x, 1, ctx), "halo_deep": halo_rows(x, spec["deep"], ctx),
+                "gather": gather_rows(x, ctx.group, sizes=ctx.split(h)),
+                "mean": spatial_mean(x),
+                "down": resize_bilinear(x, local_size((full.shape[1] // 2, full.shape[2]))),
+                "up": resize_bilinear(x, local_size((full.shape[1] * 2, full.shape[2]))),
+                "conv": conv(x), "first": from_first(x[:, 0])}
+        with torch.no_grad():
+            res["first_poisoned"] = from_first(x[:, 0] if rank == 0 else
+                                               torch.full_like(x[:, 0], float("nan")))
+        with mock.patch.object(layers, "draw_seed", lambda gen: spec["seed"]):
+            res["mask"] = layers.fast_dropout(torch.ones_like(x), 0.5, True, None) != 0
+    for name, out in outs.items():
+        (dx,) = torch.autograd.grad((out * cot[name]).sum(), x)
+        res[name] = out.detach()
+        res[f"d_{name}"] = dx
+    save(rank, out_dir, res)
+
+
+CLASSIFIERS = {"mpvit": MPViT, "coat": CoaT}
+
+
+def classifier_worker(rank: int, spec_path: str, out_dir: str) -> None:
+    """A classifier's eval forward with the image rows over the group of all
+    ranks, and the gradients of the mean cross-entropy of its logits against
+    ``spec["labels"]``, summed over the ranks and divided by their count."""
+    spec = torch.load(spec_path, weights_only=False)
+    model = CLASSIFIERS[spec["cls"]](**spec["kw"]).eval()
+    model.load_state_dict(spec["state_dict"])
+    out = model_apply_context_parallel(model, spec["x"], None, make_context_mesh())
+    names = [n for n, _ in model.named_parameters()]
+    grads = torch.autograd.grad(F.cross_entropy(out["logits"], spec["labels"]),
+                                list(model.parameters()), allow_unused=True,
+                                materialize_grads=True)
+    flat = torch.cat([t.reshape(-1) for t in grads])
+    dist.all_reduce(flat)
+    flat /= dist.get_world_size()
+    save(rank, out_dir, {"logits": out["logits"].detach(), "feat": out["feat"].detach(),
+                         "grads": dict(zip(names, [p.view_as(t) for p, t in zip(
+                             flat.split([t.numel() for t in grads]), grads)]))})
