@@ -174,17 +174,28 @@ Phases, each printing JSON lines; any failure exits non-zero:
             two-rank spawn: BASE at 480² as at 512², ``mpvit_base`` and
             ``coat_small`` at 224², B=16 (eval forward and a cross-entropy
             pull: logits, summed gradients, launches once a block), MDViT
-            with the DeepLabV3 debranch at 512² (eval forward);
+            with the DeepLabV3 debranch at 512² (eval forward). Then the
+            segmentation comparators in one more two-rank spawn at their
+            published widths, fp32, B=2: UTNet, SwinUnet, SwinUNETR and
+            TransFuse_S at 512², TransFuse_L_384 at 384×512 (``CP_ZOO``):
+            the train-mode forward (running stats frozen) against one
+            process, every map and feat; for UTNet, SwinUnet and SwinUNETR
+            one CP train step (loss and BN stats; the gradients of the same
+            step in fp64, ranks against one process within
+            ``CP_FP64_GRAD_TOL``, the fp32 gradients' gaps recorded); every
+            launch counter 0; a rank's step ms, busy ms and peak MiB (TransFuse:
+            the forward's ms and peak) beside one process's;
 17. the ``kernels`` line (launches from the trainer's ``fit``, and by path
-   under ``launches_by_path``, ``zoo`` all 0), the card's name and power
-   limit, and last the ``{"ok": true, "device": ...}`` line. Each phase
-   prints its seconds.
+   under ``launches_by_path``, ``zoo`` and the comparators' CP path all
+   0), the card's name and power limit, and last the ``{"ok": true,
+   "device": ...}`` line. Each phase prints its seconds.
 
 ``--dp-cards`` runs only the build, the dp phase with one NCCL rank on each
 visible card (a host of several cards) in place of the gloo ranks, and the
 cp phase's ranks: ctx over every card at 512², B=2, and on four cards ctx
-at 448² (deepest rows 4, 4, 3, 3) and the (2, 2) data × ctx grid at B=4,
-each against one process. ``--cp-only`` runs
+at 448² (deepest rows 4, 4, 3, 3), the (2, 2) data × ctx grid at B=4 and
+SwinUnet with ctx = 4 at 512² (its windows span two ranks; the shift wraps
+from the last rank to the first), each against one process. ``--cp-only`` runs
 only the build and the cp phase; with ``--dp-cards``, only the build and the
 cp phase's NCCL ranks.
 
@@ -234,7 +245,8 @@ from mdvit_tpu_torch.models.registry import build_mdvit, build_model
 from mdvit_tpu_torch.ops import dwconv, kernels
 from mdvit_tpu_torch.ops import factorized_attention as fa
 from mdvit_tpu_torch.ops.layers import fast_normal, fast_uniform
-from mdvit_tpu_torch.ops.norm import DomainBatchNorm
+from mdvit_tpu_torch.ops.norm import DomainBatchNorm, running_stats_frozen
+from mdvit_tpu_torch.ops import resize as resize_module
 from mdvit_tpu_torch.ops.resize import resize_bilinear
 from mdvit_tpu_torch.parallel.context import (ContextMesh, make_context_parallel_train_step,
                                               make_dp_context_mesh, model_apply_context_parallel,
@@ -462,6 +474,28 @@ CP_UNEVEN_IMG = 480
 CP_CLASSIFIERS = ("mpvit_base", "coat_small")
 CP_DEEPLAB_IMG = 512
 CP_CARDS_UNEVEN_IMG = 448
+# the segmentation comparators under CP: one more 2-rank spawn at published
+# widths (the registry's), fp32, B = CP_B, each model at its (H, W): the
+# train-mode forward (batch moments, the running stats frozen; dropout from
+# one generator seed: the unsharded masks' rows) against one process, every
+# map and feat within CP_FWD_TOL of max(1, max|map|); the CP train step of
+# the single-loss models (AdamW 1e-4, their own dropout) with the cp step's
+# loss and BN-stat gates, its gradients held in fp64 (below); every port-kernel launch
+# 0; a rank's step ms, busy ms and peak MiB (the forward's for TransFuse,
+# which has no CP step) against one process. --dp-cards: CP_ZOO_CARDS with
+# ctx over four NCCL cards at CP_IMG (its 16-row stage-3 grid 4 a rank: the
+# windows of 8 span two ranks, the shift wraps from rank 3 to rank 0)
+CP_ZOO = {"UTNet": (CP_IMG, CP_IMG), "SwinUnet": (CP_IMG, CP_IMG),
+          "SwinUNETR": (CP_IMG, CP_IMG), "TransFuse_S": (CP_IMG, CP_IMG),
+          "TransFuse_L_384": (384, 512)}
+CP_ZOO_STEP = ("UTNet", "SwinUnet", "SwinUNETR")
+CP_ZOO_CARDS = ("SwinUnet",)
+# the split does not depend on the precision, so the comparators' step
+# gradients are held in fp64 (every parameter, input and compute dtype),
+# the ranks' against one process's, relative L2: UTNet's fp32 gradient at
+# 512² sits near kinks (ReLU, max pool) where fp32 rounding alone moves it
+# past GRAD_L2_TOL, so the fp32 gaps are recorded, not gated
+CP_FP64_GRAD_TOL = 1e-9
 # the zoo phase: the segmentation comparators at full width, 256², trained
 # and served through the entry points (none reaches the six kernels); the
 # card against the host CPU at ZOO_CPU_B images, relative to max(1, max|logit|);
@@ -2839,6 +2873,182 @@ def _cp_more_records(ranks: list, single: dict) -> list:
     return recs
 
 
+def _cp_zoo_one(name: str, seed: int, group) -> dict:
+    """``name`` (``CP_ZOO``) over ``group`` (None: one process): the
+    train-mode forward under frozen running stats with the launch counters
+    read around it, then timed with its peak; for ``CP_ZOO_STEP``, one CP
+    train step with the counters around it (loss, gradients, BN stats),
+    ``CP_TIMED`` steps timed, one profiled, and the step's peak."""
+    h, w = CP_ZOO[name]
+    model = build_model(name, img_size=h, num_domains=TRAIN_D, device="cuda", seed=seed).train()
+    gen = torch.Generator().manual_seed(seed + 66)
+    x = torch.randn((CP_B, h, w, 3), generator=gen).cuda()
+    y = (torch.rand((CP_B, h, w, 1), generator=gen) > 0.5).float().cuda()
+    dom = torch.eye(TRAIN_D)[torch.arange(CP_B) % TRAIN_D].cuda()
+
+    def forward():
+        with torch.no_grad(), running_stats_frozen():
+            return model_apply_context_parallel(model, x, dom, group, train=True,
+                                                gen=torch.Generator().manual_seed(seed + 67))
+
+    kernels.reset_launches()
+    out = forward()
+    torch.cuda.synchronize()
+    res = {"forward_launches": dict(kernels.LAUNCHES),
+           "maps": [m.float().cpu() for m in _maps(out)], "feat": out["feat"].float().cpu(),
+           "split_stride": getattr(model, "row_split_stride", 32)}
+    del out
+    _barrier(group)
+    _reset_peak()
+    t0 = time.perf_counter()
+    forward()
+    torch.cuda.synchronize()
+    res["forward_ms"] = (time.perf_counter() - t0) * 1e3
+    res["forward_peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    if name not in CP_ZOO_STEP:
+        return res
+    res["grads_fp64"] = _step_grads_fp64(name, seed, x, y, dom, group)
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=0.05)
+    step = make_context_parallel_train_step(model, opt, group)
+    kernels.reset_launches()
+    res["loss"] = step(x, y, dom, torch.Generator().manual_seed(seed + 68)).cpu()
+    torch.cuda.synchronize()
+    res["step_launches"] = dict(kernels.LAUNCHES)
+    res["grads"] = [p.grad.detach().cpu() for p in model.parameters()]
+    res["stats"] = [b.detach().cpu() for n, b in model.named_buffers() if "running" in n]
+    gen = torch.Generator().manual_seed(seed + 69)
+    lat = []
+    for _ in range(CP_TIMED):
+        _barrier(group)
+        t0 = time.perf_counter()
+        step(x, y, dom, gen)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    res["step_ms"] = lat
+    _barrier(group)
+    res["device_busy_ms"] = _profile_calls(lambda: step(x, y, dom, gen), reps=1,
+                                           cpu=False)["device_busy_ms"]
+    _barrier(group)
+    _reset_peak()
+    step(x, y, dom, gen)
+    torch.cuda.synchronize()
+    res["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    return res
+
+
+def _step_grads_fp64(name: str, seed: int, x, y, dom, group) -> list:
+    """The gradients of ``_cp_zoo_one``'s step of ``name`` over ``group``
+    (None: one process) on ``x``, the same dropout masks, with every
+    parameter, input, compute dtype, fp32 cast (the norms', the moments')
+    and constant matrix (the resizes') in fp64."""
+    model = build_model(name, img_size=CP_ZOO[name][0], num_domains=TRAIN_D, device="cuda",
+                        seed=seed).train().double()
+    for m in model.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = torch.float64
+    step = make_context_parallel_train_step(model, torch.optim.SGD(model.parameters(), lr=0.0),
+                                            group)
+    constant = resize_module.device_constant
+    default = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        with mock.patch.object(torch.Tensor, "float", lambda t: t.to(torch.float64)), \
+                mock.patch.object(resize_module, "device_constant",
+                                  lambda *a: constant(*a).double()):
+            step(x.double(), y.double(), dom.double(), torch.Generator().manual_seed(seed + 68))
+    finally:
+        torch.set_default_dtype(default)
+    grads = [p.grad.detach().cpu() for p in model.parameters()]
+    del model, step
+    torch.cuda.empty_cache()
+    return grads
+
+
+def _cp_zoo_run(seed: int, group, names=tuple(CP_ZOO)) -> dict:
+    """``_cp_zoo_one`` of each of ``names``, with its seconds."""
+    res = {}
+    for name in names:
+        t0 = time.perf_counter()
+        res[name] = _cp_zoo_one(name, seed, group)
+        res[name]["seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    return res
+
+
+def _cp_zoo_records(ranks: list, single: dict, part: str = "zoo") -> list:
+    """One record a comparator, each with ``ok``: the forward's maps and
+    feat a rank against one process (relative to max(1, max|map|)), for the
+    step models the step's loss, BN stats and gradients, every launch
+    counter (0), and a rank's ms and peak beside one process's."""
+    recs = []
+    for name, one in single.items():
+        per = [r[name] for r in ranks]
+        scale = max(1.0, max(m.abs().max().item() for m in one["maps"]))
+        fscale = max(1.0, one["feat"].abs().max().item())
+        rec = {"phase": "cp", "part": part, "model": name, "world": len(ranks),
+               "img": list(CP_ZOO[name]), "B": CP_B,
+               "deepest_rows_per_rank": list(balanced_rows(CP_ZOO[name][0] // one["split_stride"],
+                                                           len(ranks))),
+               "maps": len(one["maps"]),
+               "maps_err": max((a - b).abs().max().item() for p in per
+                               for a, b in zip(p["maps"], one["maps"])) / scale,
+               "feat_err": max((p["feat"] - one["feat"]).abs().max().item()
+                               for p in per) / fscale,
+               "finite": all(bool(torch.isfinite(m).all()) for p in [one, *per]
+                             for m in p["maps"]),
+               "launches_per_rank": [{k: v for k, v in p.items() if k.endswith("_launches")}
+                                     for p in per],
+               "forward_ms": {"one_process": one["forward_ms"],
+                              **{f"rank{i}": p["forward_ms"] for i, p in enumerate(per)}},
+               "forward_peak_mib": {"one_process": one["forward_peak_mib"],
+                                    **{f"rank{i}": p["forward_peak_mib"]
+                                       for i, p in enumerate(per)}},
+               "seconds": {"one_process": one["seconds"],
+                           **{f"rank{i}": p["seconds"] for i, p in enumerate(per)}},
+               "tol": {"maps": CP_FWD_TOL}}
+        launches = [one["forward_launches"], *(p["forward_launches"] for p in per)]
+        ok = (rec["maps_err"] <= CP_FWD_TOL and rec["feat_err"] <= CP_FWD_TOL and rec["finite"])
+        if name in CP_ZOO_STEP:
+            rec.update({
+                "loss_rel_err": max(abs(p["loss"].item() - one["loss"].item()) for p in per)
+                / abs(one["loss"].item()),
+                "bn_stats_rel_err": max((_rel_max(a, b) for p in per
+                                         for a, b in zip(p["stats"], one["stats"])),
+                                        default=0.0),
+                "grad_fp64_l2_rel": max(_rel_l2(p["grads_fp64"], one["grads_fp64"])
+                                        for p in per),
+                "grad_l2_rel": max(_rel_l2(p["grads"], one["grads"]) for p in per),
+                "one_process_vs_fp64": _rel_l2(one["grads"], one["grads_fp64"]),
+                "ranks_vs_fp64": max(_rel_l2(p["grads"], one["grads_fp64"]) for p in per),
+                "step_ms": {"one_process": one["step_ms"],
+                            **{f"rank{i}": p["step_ms"] for i, p in enumerate(per)}},
+                "device_busy_ms": {"one_process": one["device_busy_ms"],
+                                   **{f"rank{i}": p["device_busy_ms"]
+                                      for i, p in enumerate(per)}},
+                "peak_mib": {"one_process": one["peak_mib"],
+                             **{f"rank{i}": p["peak_mib"] for i, p in enumerate(per)}}})
+            rec["tol"].update({"loss_rel": CP_LOSS_RTOL, "bn_rel": CP_BN_TOL,
+                               "grad_fp64_l2": CP_FP64_GRAD_TOL})
+            launches += [one["step_launches"], *(p["step_launches"] for p in per)]
+            ok = ok and (rec["loss_rel_err"] <= CP_LOSS_RTOL
+                         and rec["bn_stats_rel_err"] <= CP_BN_TOL
+                         and rec["grad_fp64_l2_rel"] <= CP_FP64_GRAD_TOL)
+        rec["ok"] = ok and all(n == 0 for launch in launches for n in launch.values())
+        recs.append(rec)
+    return recs
+
+
+def _zoo_launches(ranks: list) -> dict:
+    """Rank 0's port-kernel launches over the comparators' CP forwards and
+    steps."""
+    total = dict.fromkeys(FORWARD + BACKWARD, 0)
+    for res in ranks[0].values():
+        for key in ("forward_launches", "step_launches"):
+            for k, v in res.get(key, {}).items():
+                total[k] = total.get(k, 0) + v
+    return total
+
+
 def phase_cp(seed: int) -> dict:
     """Context parallelism on the card: (1) the kernels alone on row halves
     (``cp_kernels``) and on the uneven paths' unequal blocks
@@ -2875,9 +3085,16 @@ def phase_cp(seed: int) -> dict:
         emit(r)
         if not r["ok"]:
             failed.append(r.get("model", r["part"]))
+    zoo_single = _cp_zoo_run(seed, None)
+    torch.cuda.empty_cache()
+    zoo = _cp_spawn(seed, CP_WORLD, "gloo", run=_cp_zoo_run)
+    for r in _cp_zoo_records(zoo, zoo_single):
+        emit(r)
+        if not r["ok"]:
+            failed.append(r["model"])
     shutil.rmtree(CP_DIR, ignore_errors=True)
     if failed:
-        raise RuntimeError(f"cp phase's uneven splits failed: {failed}")
+        raise RuntimeError(f"cp phase's uneven splits or comparators failed: {failed}")
     cls = dict.fromkeys(FORWARD + BACKWARD, 0)
     for name in CP_CLASSIFIERS:
         for launches in (more[0]["classifiers"][name]["forward_launches"],
@@ -2889,7 +3106,9 @@ def phase_cp(seed: int) -> dict:
                 more[0]["base"]["launches"],
             f"cp forward + pull {' + '.join(CP_CLASSIFIERS)}, rank 0 of {CP_WORLD}": cls,
             f"cp forward MDViT_DeepLabV3 {CP_DEEPLAB_IMG}, rank 0 of {CP_WORLD}":
-                more[0]["deeplab"]["launches"]}
+                more[0]["deeplab"]["launches"],
+            f"cp forward + step {' + '.join(CP_ZOO)}, rank 0 of {CP_WORLD}":
+                _zoo_launches(zoo)}
 
 
 def phase_cp_cards(seed: int) -> None:
@@ -2912,6 +3131,13 @@ def phase_cp_cards(seed: int) -> None:
         emit(rec)
         if not _cp_ok(rec, False):
             raise RuntimeError(f"cp {name} failed: {json.dumps(rec)[:2000]}")
+    if world == 4:
+        single = _cp_zoo_run(seed, None, CP_ZOO_CARDS)
+        ranks = _cp_spawn(seed, world, "nccl", run=_cp_zoo_run, names=CP_ZOO_CARDS)
+        for rec in _cp_zoo_records(ranks, single, "zoo_cards"):
+            emit({**rec, "backend": "nccl"})
+            if not rec["ok"]:
+                raise RuntimeError(f"cp zoo_cards failed: {json.dumps(rec)[:2000]}")
     shutil.rmtree(CP_DIR, ignore_errors=True)
 
 

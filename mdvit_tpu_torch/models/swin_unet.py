@@ -19,6 +19,17 @@ Submodules keep the flax module names (``layer{i}_block{j}``,
 ``downsample{i}``, ``up{i}_block{j}``, ``concat_back_dim{i}``, ...), so
 ``convert.from_jax_variables`` maps the leaves by name. No model here
 reaches the port's kernels.
+
+Under an end-to-end row shard (``parallel.mesh.current_context()``, mode
+``"e2e"``) SwinUnet's token grids hold this rank's rows: the reshapes take
+the local rows, the window and shift stay those of the global grid (fixed
+at construction), and a block computes every window of the shifted frame
+that holds one of its rows, on those windows' rows taken cyclically from
+the ranks that hold them (``cyclic_rows``: the roll by −shift sends the
+first rows past the last), with the mask rows of those windows by their
+global index; it keeps its own rows. Patch merging and expanding are local
+(every rank starts on an even row), the feature mean is the whole grid's.
+The classifier is refused (``context_parallel_gap``).
 """
 from __future__ import annotations
 
@@ -31,6 +42,7 @@ from torch import nn
 from mdvit_tpu_torch.ops.layers import (Conv2d, Linear, Mlp, device_constant, drop_path,
                                         fast_dropout)
 from mdvit_tpu_torch.ops.norm import DomainLayerNorm
+from mdvit_tpu_torch.parallel.mesh import current_context, cyclic_rows, spatial_mean
 
 
 def _rel_pos_index(window: int) -> np.ndarray:
@@ -92,7 +104,9 @@ def attend(probs: torch.Tensor, v: torch.Tensor, out_dtype: torch.dtype) -> torc
 
 
 class WindowAttention(nn.Module):
-    """W-MSA with the relative position bias (``swin_unet.py:WindowAttention``)."""
+    """W-MSA with the relative position bias (``swin_unet.py:WindowAttention``).
+    No dropout on the probabilities (JAX's has none), so no mask has window
+    rows on axis 0 under context parallelism."""
 
     def __init__(self, dim: int, window: int, num_heads: int, qkv_bias: bool = True,
                  dtype: torch.dtype = torch.float32):
@@ -144,19 +158,54 @@ class SwinBlock(nn.Module):
         (hres, wres), window, shift = self.resolution, self.window, self.shift
         b, n, c = x.shape
         shortcut = x
-        x = self.norm1(x).reshape(b, hres, wres, c)
-        mask = None
-        if shift > 0:
-            x = torch.roll(x, (-shift, -shift), dims=(1, 2))
-            mask = device_constant(("shift_mask", hres, wres, window, shift),
-                                   lambda: _shift_attn_mask(hres, wres, window, shift),
-                                   x.device)
-        x = window_reverse(self.attn(window_partition(x, window), mask), window, hres, wres)
-        if shift > 0:
-            x = torch.roll(x, (shift, shift), dims=(1, 2))
+        ctx = current_context()
+        if ctx is not None and ctx.mode == "e2e":
+            x = self._rows_attention(self.norm1(x).reshape(b, n // wres, wres, c), ctx)
+        else:
+            x = self.norm1(x).reshape(b, hres, wres, c)
+            mask = None
+            if shift > 0:
+                x = torch.roll(x, (-shift, -shift), dims=(1, 2))
+                mask = device_constant(("shift_mask", hres, wres, window, shift),
+                                       lambda: _shift_attn_mask(hres, wres, window, shift),
+                                       x.device)
+            x = window_reverse(self.attn(window_partition(x, window), mask), window, hres, wres)
+            if shift > 0:
+                x = torch.roll(x, (shift, shift), dims=(1, 2))
         x = shortcut + drop_path(x.reshape(b, n, c), self.drop_path, train, gen)
         cur = self.mlp(self.norm2(x), train, gen)
         return x + drop_path(cur, self.drop_path, train, gen)
+
+    def _rows_attention(self, x: torch.Tensor, ctx) -> torch.Tensor:
+        """The (shifted) window attention of this rank's (B, h, W, C) rows
+        under an end-to-end row shard: every window of the shifted frame
+        that holds one of its rows, computed on rows [lo, hi) of the global
+        grid (``cyclic_rows``), its own rows kept."""
+        (hres, wres), window, shift = self.resolution, self.window, self.shift
+        sizes = ctx.split(x.shape[1])
+        starts = [sum(sizes[:r]) for r in range(len(sizes))]
+        # shifted-frame row i is global row i + shift: window k spans global
+        # rows [k·window + shift, (k + 1)·window + shift)
+        ranges = [(((s - shift) // window) * window + shift,
+                   -(-(s + n - shift) // window) * window + shift)
+                  for s, n in zip(starts, sizes)]
+        lo, hi = ranges[ctx.index]
+        x = cyclic_rows(x, ranges, ctx)
+        mask = None
+        if shift > 0:
+            x = torch.roll(x, -shift, dims=2)
+            # the mask of each window row [lo, hi) spans, by its global index
+            rows = [((lo - shift) // window + k) % (hres // window)
+                    for k in range((hi - lo) // window)]
+            mask = device_constant(("shift_mask_rows", hres, wres, window, shift, lo, hi),
+                                   lambda: _shift_attn_mask(hres, wres, window, shift).reshape(
+                                       hres // window, -1, window ** 2, window ** 2)[rows],
+                                   x.device).flatten(0, 1)
+        x = window_reverse(self.attn(window_partition(x, window), mask), window, hi - lo, wres)
+        if shift > 0:
+            x = torch.roll(x, shift, dims=2)
+        own = starts[ctx.index] - lo
+        return x[:, own:own + sizes[ctx.index]]
 
 
 class PatchMerging(nn.Module):
@@ -170,8 +219,13 @@ class PatchMerging(nn.Module):
         self.reduction = Linear(4 * dim, 2 * dim, bias=False, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h, w = self.resolution
-        b, _, c = x.shape
+        b, n, c = x.shape
+        w = self.resolution[1]
+        h = n // w  # this rank's rows under a row shard
+        ctx = current_context()
+        if ctx is not None and ctx.mode == "e2e" and (h % 2 or ctx.start(h) % 2):
+            raise ValueError(f"a row-sharded patch merging needs every rank's rows and first "
+                             f"row even; this rank holds {h} from row {ctx.start(h)}")
         x = x.reshape(b, h, w, c)
         x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2],
                        x[:, 1::2, 1::2]], dim=-1)
@@ -192,8 +246,8 @@ class PatchExpand(nn.Module):
         self.norm = DomainLayerNorm(self.out_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        (h, w), s, c = self.resolution, self.scale, self.out_dim
-        b = x.shape[0]
+        w, s, c = self.resolution[1], self.scale, self.out_dim
+        b, h = x.shape[0], x.shape[1] // w  # this rank's rows under a row shard
         x = self.expand(x).reshape(b, h, w, s, s, c).permute(0, 1, 3, 2, 4, 5)
         return self.norm(x.reshape(b, s * h * s * w, c))
 
@@ -234,7 +288,7 @@ class _SwinEncoder(nn.Module):
 
     def embed(self, x: torch.Tensor, train: bool, gen) -> torch.Tensor:
         x = self.patch_embed(x)
-        x = x.reshape(x.shape[0], self.res0 * self.res0, -1)
+        x = x.reshape(x.shape[0], -1, x.shape[-1])
         return fast_dropout(self.patch_norm(x), self.drop_rate, train, gen)
 
     def stages(self, x: torch.Tensor, train: bool, gen, skips: list | None = None
@@ -251,6 +305,8 @@ class _SwinEncoder(nn.Module):
 
 class SwinUnet(_SwinEncoder):
     """Swin-Unet (``swin_unet.py:SwinUnet``), NHWC in, NHWC logits out."""
+
+    context_parallel_gap = None
 
     def __init__(self, img_size: int = 256, patch_size: int = 4, num_classes: int = 1,
                  embed_dim: int = 96, depths: Sequence[int] = (2, 2, 6, 2),
@@ -287,7 +343,7 @@ class SwinUnet(_SwinEncoder):
         require_no_aux(aux_mode)
         skips: list = []
         x = self.stages(self.embed(x, train, gen), train, gen, skips)
-        feat = x.mean(dim=1) if out_feat else None
+        feat = spatial_mean(x[:, :, None]) if out_feat else None
         if not out_seg:
             return {"seg": None, "feat": feat}
         for i in range(4):
@@ -301,7 +357,7 @@ class SwinUnet(_SwinEncoder):
             if i < 3:
                 x = getattr(self, f"up{i}_expand")(x)
         x = self.final_expand(self.norm_up(x))
-        x = x.reshape(x.shape[0], self.img_size, self.img_size, -1)
+        x = x.reshape(x.shape[0], -1, self.img_size, x.shape[-1])
         return {"seg": self.output(x), "feat": feat}
 
 
@@ -309,6 +365,12 @@ class SwinClassifier(_SwinEncoder):
     """The Swin classification backbone (``swin_unet.py:SwinClassifier``):
     patch embed (+ LN), optional absolute position embedding, the four
     stages, LN, token-mean pool, linear head."""
+
+    # JAX's model_apply_context_parallel passes the domain one-hot
+    # positionally, which lands on SwinClassifier.__call__(x, train)'s train
+    context_parallel_gap = ("swin_tiny (SwinClassifier): JAX's model_apply_context_parallel "
+                            "passes the domain one-hot positionally, where SwinClassifier's "
+                            "call takes train, so JAX's CP cannot call it")
 
     def __init__(self, img_size: int = 224, patch_size: int = 4, num_classes: int = 1000,
                  embed_dim: int = 96, depths: Sequence[int] = (2, 2, 6, 2),

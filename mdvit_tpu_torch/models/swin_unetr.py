@@ -9,6 +9,12 @@ kernel: out[2i + t] = x[i]·w[1 − t] on each axis, where
 ``torch.nn.ConvTranspose2d`` gives x[i]·W[t]. So the port's (in, out, kh, kw)
 weight is the flax (kh, kw, in, out) kernel with both spatial axes flipped
 (``convert.py``; ``tests/test_torch_zoo_swin.py`` holds the mapping alone).
+
+Under an end-to-end row shard the Swin blocks run as SwinUnet's do, the
+reshapes take this rank's rows, the 3×3 convs exchange halo rows, the
+transposed convs (kernel = stride) are local, and InstanceNorm's moments
+and the feature mean are the whole grid's (``spatial_moments``,
+``spatial_mean``).
 """
 from __future__ import annotations
 
@@ -21,11 +27,13 @@ from torch import nn
 
 from mdvit_tpu_torch.models.swin_unet import PatchMerging, SwinBlock, require_no_aux
 from mdvit_tpu_torch.ops.layers import Conv2d
+from mdvit_tpu_torch.parallel.mesh import spatial_mean, spatial_moments
 
 
 class InstanceNorm(nn.Module):
-    """Per-sample, per-channel moments over H and W in fp32, eps 1e-5, with
-    an affine (``scale``/``bias`` in flax, ``weight``/``bias`` here)."""
+    """Per-sample, per-channel moments over H and W in fp32 (the whole grid's
+    under a row shard), eps 1e-5, with an affine (``scale``/``bias`` in
+    flax, ``weight``/``bias`` here)."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -35,8 +43,7 @@ class InstanceNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
-        mean = xf.mean(dim=(1, 2), keepdim=True)
-        var = (xf - mean).square().mean(dim=(1, 2), keepdim=True)
+        mean, var = spatial_moments(x)
         y = (xf - mean) * torch.rsqrt(var + self.eps)
         return (y * self.weight + self.bias).to(x.dtype)
 
@@ -100,6 +107,8 @@ class UnetrUpBlock(nn.Module):
 class SwinUNETR(nn.Module):
     """2-D SwinUNETR: Swin encoder (patch 2) + UNETR conv decoder."""
 
+    context_parallel_gap = None
+
     def __init__(self, img_size: int = 256, in_channels: int = 3, out_channels: int = 1,
                  feature_size: int = 48, depths: Sequence[int] = (2, 2, 2, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24), window: int = 8,
@@ -138,17 +147,17 @@ class SwinUNETR(nn.Module):
         x_in = x
         h = self.patch_embed(x)
         b = h.shape[0]
-        t = h.reshape(b, self.res0 * self.res0, -1)
+        t = h.reshape(b, -1, h.shape[-1])
         hidden = []
         for i in range(4):
             res = self.res0 // 2 ** i
-            hidden.append(t.reshape(b, res, res, -1))
+            hidden.append(t.reshape(b, -1, res, t.shape[-1]))  # this rank's rows
             for j in range(self.depths[i]):
                 t = getattr(self, f"swin{i}_block{j}")(t, train, gen)
             t = getattr(self, f"merge{i}")(t)
         res4 = self.res0 // 16
-        x4 = t.reshape(b, res4, res4, -1)
-        feat = x4.mean(dim=(1, 2)) if out_feat else None
+        x4 = t.reshape(b, -1, res4, t.shape[-1])
+        feat = spatial_mean(x4) if out_feat else None
         if not out_seg:
             return {"seg": None, "feat": feat}
         enc0 = self.encoder1(x_in)

@@ -13,6 +13,16 @@ loss; eval and serving take map_2 (``models.base.split_seg``). Attention is
 explicit products and a softmax in fp32; nothing here reaches the port's
 kernels. Submodules keep the flax names (``transformer.block{i}_attn``,
 ``resnet.layer{l}_{b}``, ``up_c_1_1``, ``final_x_0``, ...).
+
+Under an end-to-end row shard (``parallel.mesh.current_context()``, mode
+``"e2e"``) every grid holds this rank's rows: the convs exchange halo rows,
+the stem's max pool takes one, the DeiT adds its rows of the position
+embedding and attends its queries over every rank's keys and values
+(``gather_shared_rows``), the align-corners upsamples run on row blocks,
+and the fusion's channel attention and the feature mean are the whole
+grid's. Dropout2d's masks are per sample and channel, the same on every
+rank. The context-parallel train step refuses the model: its loss takes
+three maps (``context_parallel_step_gap``).
 """
 from __future__ import annotations
 
@@ -25,7 +35,9 @@ from torch import nn
 from mdvit_tpu_torch.models.swin_unet import attend, require_no_aux, scores
 from mdvit_tpu_torch.ops.layers import Conv2d, Linear, Mlp, dropout2d, fast_dropout
 from mdvit_tpu_torch.ops.norm import DomainBatchNorm, DomainLayerNorm
-from mdvit_tpu_torch.ops.resize import resize_bilinear_align_corners
+from mdvit_tpu_torch.ops.resize import local_size, resize_bilinear_align_corners
+from mdvit_tpu_torch.parallel.mesh import (current_context, gather_shared_rows, halo_rows,
+                                           spatial_mean)
 
 # variant → (ResNet, DeiT embed, depth, heads, ResNet layer widths, UpBlock widths,
 # head width)
@@ -115,7 +127,15 @@ class ResNetStem3Stages(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> list[torch.Tensor]:
         x = F.relu(self.bn1(self.conv1(x), None, train))
-        x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
+        ctx = current_context()
+        if ctx is not None and ctx.mode == "e2e":
+            # one halo row a side for the 3×3 / 2 window; the zero rows at the
+            # global top and bottom give the −∞ padding's max because the
+            # input is post-ReLU (≥ 0) and every window holds a real element
+            x = halo_rows(x, 1, ctx)
+            x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, (0, 1)).permute(0, 2, 3, 1)
+        else:
+            x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
         outs = []
         for li, n in enumerate(self.blocks):
             for bi in range(n):
@@ -147,8 +167,12 @@ class ViTAttention(nn.Module):
         b, n, c = x.shape
         h = self.num_heads
         qkv = self.qkv(x).reshape(b, n, 3, h, c // h).permute(2, 0, 3, 1, 4)
-        attn = torch.softmax(scores(qkv[0], qkv[1]) * (c // h) ** -0.5, dim=-1)
-        out = attend(attn, qkv[2], x.dtype)                      # (b, h, n, ch)
+        q, k, v = qkv
+        ctx = current_context()
+        if ctx is not None and ctx.mode == "e2e":  # every rank's keys and values
+            k, v = gather_shared_rows(qkv[1:], ctx, dim=3)
+        attn = torch.softmax(scores(q, k) * (c // h) ** -0.5, dim=-1)
+        out = attend(attn, v, x.dtype)                           # (b, h, n, ch)
         if self.sup:
             g = F.relu(self.domain_layer_fc1(domain_onehot.to(out.dtype)))
             g = self.domain_layer_fc2(g).reshape(b, h, c // h)
@@ -190,8 +214,13 @@ class DeiT(nn.Module):
     def forward(self, x: torch.Tensor, domain_onehot: torch.Tensor | None = None,
                 train: bool = False, gen=None) -> torch.Tensor:
         x = self.patch_embed(x)
-        x = x.reshape(x.shape[0], self.grid[0] * self.grid[1], -1)
-        x = fast_dropout(x + self.pos_embed.to(x.dtype), self.drop, train, gen)
+        x = x.reshape(x.shape[0], -1, x.shape[-1])
+        pos = self.pos_embed
+        ctx = current_context()
+        if ctx is not None and ctx.mode == "e2e":  # this rank's token rows
+            first = ctx.start(x.shape[1])
+            pos = pos[:, first:first + x.shape[1]]
+        x = fast_dropout(x + pos.to(x.dtype), self.drop, train, gen)
         for i in range(self.depth):
             cur = getattr(self, f"block{i}_norm1")(x)
             x = x + getattr(self, f"block{i}_attn")(cur, domain_onehot, train, gen)
@@ -266,7 +295,7 @@ class BiFusion(nn.Module):
         bp = self.W(self.W_g(g, train) * self.W_x(x, train), train)
         pooled = torch.cat([g.amax(dim=-1, keepdim=True), g.mean(dim=-1, keepdim=True)], -1)
         g = torch.sigmoid(self.spatial(pooled, train)) * g
-        ca = self.fc2(F.relu(self.fc1(x.mean(dim=(1, 2), keepdim=True))))
+        ca = self.fc2(F.relu(self.fc1(spatial_mean(x)[:, None, None])))
         x = torch.sigmoid(ca) * x
         fuse = self.residual(torch.cat([g, x, bp], dim=-1), train)
         return dropout2d(fuse, self.drop_rate, train, gen)
@@ -321,6 +350,16 @@ class TransFuse(nn.Module):
     """TransFuse_S/_L (± the Sup gate): the three deep-supervision maps
     ``(map_x, map_1, map_2)``, NHWC logits at the input's size."""
 
+    context_parallel_gap = None
+    # JAX's CP step computes seg_loss_from_logits(out["seg"], y), which casts
+    # the seg tuple with .astype and fails
+    context_parallel_step_gap = (
+        "TransFuse's three deep-supervision maps (map_x, map_1, map_2): JAX's context-"
+        "parallel step takes the single loss of out['seg'], which fails on the tuple")
+    # the deepest grids are H/16 (ResNet layer3, the DeiT's 16×16 patches);
+    # JAX's guard keeps its default stride (32), as the model sets no total_stride
+    row_split_stride = 16
+
     def __init__(self, img_size: int | Sequence[int] = 256, num_classes: int = 1,
                  variant: str = "S", sup: bool = False, num_domains: int = 4,
                  drop_rate: float = 0.2, dtype: torch.dtype = torch.float32):
@@ -353,7 +392,7 @@ class TransFuse(nn.Module):
             t = getattr(self, f"{name}_0")(t, train)
         t = getattr(self, f"{name}_1")(t, train)
         return resize_bilinear_align_corners(getattr(self, f"{name}_2")(t, train),
-                                             self.img_size)
+                                             local_size(self.img_size))
 
     def forward(self, x: torch.Tensor, domain_onehot: torch.Tensor | None = None,
                 train: bool = False, out_feat: bool = True, out_seg: bool = True,
@@ -363,18 +402,18 @@ class TransFuse(nn.Module):
         spatial mean of the deepest fusion. ``out_seg`` False skips the
         heads (the fusion they read still runs: ``feat`` is its mean)."""
         require_no_aux(aux_mode)
-        gh, gw = self.transformer.grid
+        gw = self.transformer.grid[1]
 
         def drop(t: torch.Tensor) -> torch.Tensor:
             return dropout2d(t, self.drop_rate, train, gen)
 
         tokens = self.transformer(x, domain_onehot, train, gen)
-        x_b = drop(tokens.reshape(x.shape[0], gh, gw, self.embed_dim))
+        x_b = drop(tokens.reshape(x.shape[0], -1, gw, self.embed_dim))
         x_b_1 = drop(self.up1(x_b, None, train))
         x_b_2 = drop(self.up2(x_b_1, None, train))
         x_u_2, x_u_1, x_u = (drop(f) for f in self.resnet(x, train))
         x_c = self.up_c(x_u, x_b, train, gen)
-        feat = x_c.mean(dim=(1, 2)) if out_feat else None
+        feat = spatial_mean(x_c) if out_feat else None
         if not out_seg:
             return {"seg": None, "feat": feat}
         x_c_1 = self.up_c_1_2(x_c, self.up_c_1_1(x_u_1, x_b_1, train, gen), train)

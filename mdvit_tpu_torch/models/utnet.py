@@ -13,6 +13,16 @@ computed as explicit products in fp32 (``swin_unet.scores``/``attend``); it
 is not factorized attention and reaches no kernel of the port. Its bias is
 ``table[index]`` with a broadcast repeat (whose backward is a sum, not
 ``repeat_interleave``'s scatter). Submodules keep the flax names.
+
+Under an end-to-end row shard (``parallel.mesh.current_context()``, mode
+``"e2e"``) the convs exchange halo rows, the max pools are local (every
+rank starts on an even row), queries stay on their rows and take the bias
+rows of their global rows, and the keys and values are reduced from the
+whole grid (``resize_ac_whole``: each rank's rows times its columns of the
+row matrix, summed over the ranks; a grid already ``reduce_size`` rows
+high is gathered). The align-corners upsamples run on row blocks, the
+feature mean is the whole grid's, and the probabilities' dropout hashes
+the unsharded tensor's counters along its token axis (2).
 """
 from __future__ import annotations
 
@@ -25,7 +35,8 @@ from torch import nn
 from mdvit_tpu_torch.models.swin_unet import attend, relative_bias, require_no_aux, scores
 from mdvit_tpu_torch.ops.layers import Conv2d, fast_dropout
 from mdvit_tpu_torch.ops.norm import DomainBatchNorm
-from mdvit_tpu_torch.ops.resize import resize_bilinear_align_corners
+from mdvit_tpu_torch.ops.resize import resize_ac_whole, resize_bilinear_align_corners
+from mdvit_tpu_torch.parallel.mesh import current_context, gather_shared_rows, spatial_mean
 
 
 def _maxpool2(x: torch.Tensor) -> torch.Tensor:
@@ -87,10 +98,18 @@ class RelativePositionBias(nn.Module):
         self.relative_position_bias_table.copy_(
             0.02 * torch.randn(self.relative_position_bias_table.shape, generator=generator))
 
-    def forward(self, hq: int, wq: int) -> torch.Tensor:
+    def forward(self, hq: int, wq: int, start: int = 0, total: int | None = None
+                ) -> torch.Tensor:
+        """The bias of the query rows [start, start + hq) of a grid of
+        ``total`` rows (None: hq, the whole grid)."""
         s = self.size
+        total = hq if total is None else total
         bias = relative_bias(self.relative_position_bias_table, s).reshape(s, 1, s, 1, s * s, -1)
-        bias = bias.expand(s, hq // s, s, wq // s, s * s, bias.shape[-1])
+        cell = total // s  # query rows a reduced row covers
+        first, last = start // cell, -(-(start + hq) // cell)
+        bias = bias[first:last].expand(last - first, cell, s, wq // s, s * s, bias.shape[-1])
+        bias = bias.reshape((last - first) * cell, wq, s * s, -1)
+        bias = bias[start - first * cell:start - first * cell + hq]
         return bias.reshape(hq * wq, s * s, -1).permute(2, 0, 1)
 
 
@@ -107,16 +126,28 @@ class _ReducedAttention(nn.Module):
     def _attend(self, q, k, v, hq: int, wq: int, heads: int, train: bool, gen
                 ) -> torch.Tensor:
         rs = self.reduce_size
-        if k.shape[1] != rs:
+        ctx = current_context()
+        start, total = 0, None
+        if ctx is not None and ctx.mode == "e2e":
+            split = ctx.split(hq)
+            start, total = sum(split[:ctx.index]), sum(split)
+            kv = torch.cat([k, v], dim=-1)
+            # the global grid's rows decide, as k.shape[1] does unsharded
+            if sum(ctx.split(k.shape[1])) != rs:
+                kv = resize_ac_whole(kv, (rs, rs))
+            else:
+                kv = gather_shared_rows(kv, ctx)
+            k, v = kv.chunk(2, dim=-1)
+        elif k.shape[1] != rs:
             k = resize_bilinear_align_corners(k, (rs, rs))
             v = resize_bilinear_align_corners(v, (rs, rs))
         b, dt = q.shape[0], q.dtype
         q, k, v = _heads(q, heads), _heads(k, heads), _heads(v, heads)
         attn = scores(q, k)
         if self.rel_pos is not None:
-            attn = attn + self.rel_pos(hq, wq)
+            attn = attn + self.rel_pos(hq, wq, start, total)
         attn = torch.softmax(attn * (q.shape[-1] ** -0.5), dim=-1)
-        attn = fast_dropout(attn, self.attn_drop, train, gen)
+        attn = fast_dropout(attn, self.attn_drop, train, gen, row_axis=2)
         out = attend(attn, v, dt).permute(0, 2, 3, 1).reshape(b, hq, wq, -1)
         return fast_dropout(self.to_out(out), self.proj_drop, train, gen)
 
@@ -212,6 +243,11 @@ class BasicTransDecoderBlock(nn.Module):
 class UTNet(nn.Module):
     """UTNet with the trainer's block_list '1234' wiring (``utnet.py:UTNet``)."""
 
+    context_parallel_gap = None
+    # the deepest grid is H/16 (four pools); JAX's guard keeps its default
+    # stride (32), as the model sets no total_stride
+    row_split_stride = 16
+
     def __init__(self, base_chan: int = 32, num_classes: int = 1, reduce_size: int = 8,
                  num_blocks: Sequence[int] = (1, 1, 1, 1),
                  num_heads: Sequence[int] = (4, 4, 4, 4), attn_drop: float = 0.1,
@@ -254,7 +290,7 @@ class UTNet(nn.Module):
                 out = getattr(self, f"down{n}_t{i}")(out, train, gen)
             feats.append(out)
         x1, x2, x3, x4, x5 = feats
-        feat = x5.mean(dim=(1, 2)) if out_feat else None
+        feat = spatial_mean(x5) if out_feat else None
         if not out_seg:
             return {"seg": None, "feat": feat}
         out = x5

@@ -13,9 +13,10 @@ counters of its rows (``parallel.mesh.current_shard().row0`` rows in), so
 its masks are its rows of the unsharded batch's.
 
 Under context parallelism (``parallel.mesh.current_context()``) an element
-mask (``fast_dropout``) of a tensor whose axis 1 is row-sharded (tokens or
-grid rows) follows JAX: in ``"stage"`` mode the shard index is folded into
-the seed, ``seed ^ (index · 0x9E3779B9)``, over local counters (JAX's
+mask (``fast_dropout``) of a tensor whose axis 1 (or the caller's
+``row_axis``) is row-sharded (tokens or grid rows) follows JAX: in
+``"stage"`` mode the shard index is folded into the seed,
+``seed ^ (index · 0x9E3779B9)``, over local counters (JAX's
 ``FastDropout(axis_name=...)``); in ``"e2e"`` mode the counters are the
 unsharded tensor's, sample b, global row (the rank's first row, from the
 row split, + r), so the masks are the unsharded step's rows (JAX's GSPMD
@@ -116,31 +117,34 @@ def draw_seed(gen: torch.Generator | None) -> int:
     return int(torch.randint(0, 1 << 32, (), dtype=torch.int64, generator=gen))
 
 
-def _row_block_counters(shape, row0: int, ctx, device) -> torch.Tensor:
-    """Counters of a (B, A, ...) block whose axis 1 is this rank's rows of an
-    unsharded (total batch, Σ ranks' A, ...) tensor: sample row0 + b, row
-    (the rank's first global row) + a."""
-    b, a = int(shape[0]), int(shape[1])
-    inner = math.prod(int(s) for s in shape[2:])
+def _row_block_counters(shape, row0: int, ctx, device, axis: int = 1) -> torch.Tensor:
+    """Counters of a (B, ..., A, ...) block whose axis ``axis`` is this rank's
+    rows (or row-major tokens) of an unsharded (total batch, ..., Σ ranks' A,
+    ...) tensor: sample row0 + b, that axis's index (the rank's first global
+    row) + a, the other axes as they are."""
+    shape = tuple(int(s) for s in shape)
+    b, a = shape[0], shape[axis]
+    pre, post = math.prod(shape[1:axis]), math.prod(shape[axis + 1:])
     split = ctx.split(a)
-    per_sample = sum(split) * inner
     start = sum(split[:ctx.index])
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)  # noqa: E731
-    idx = ((row0 + ar(b)) * per_sample)[:, None, None] \
-        + ((start + ar(a)) * inner)[None, :, None] + ar(inner)[None, None, :]
-    return idx.reshape(tuple(shape))
+    outer = (row0 + ar(b))[:, None] * pre + ar(pre)[None, :]  # (b, pre)
+    idx = (outer * (sum(split) * post))[:, :, None, None] \
+        + ((start + ar(a)) * post)[None, None, :, None] + ar(post)[None, None, None, :]
+    return idx.reshape(shape)
 
 
 def _keep_mask(keep: float, shape, gen, like: torch.Tensor,
-               rows: bool = False) -> torch.Tensor:
+               rows: int | None = None) -> torch.Tensor:
     """Bernoulli(keep) bools of ``shape`` (rows first), drawn on ``like``'s
-    device at the counters of the current shard's rows; ``rows``: axis 1 is
-    row-sharded under context parallelism (module docstring)."""
+    device at the counters of the current shard's rows; ``rows``: the axis
+    that is row-sharded under context parallelism (module docstring), None
+    where none is."""
     seed = draw_seed(gen)
     row0 = current_shard().row0
-    ctx = current_context() if rows else None
+    ctx = current_context() if rows is not None else None
     if ctx is not None and ctx.mode == "e2e":
-        counters = _row_block_counters(shape, row0, ctx, like.device)
+        counters = _row_block_counters(shape, row0, ctx, like.device, rows)
         return fast_uniform(seed, shape, device=like.device, counters=counters) < keep
     if ctx is not None:
         seed ^= (ctx.index * 0x9E3779B9) & _U32
@@ -168,12 +172,15 @@ def dropout2d(x: torch.Tensor, rate: float, train: bool, gen) -> torch.Tensor:
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
-def fast_dropout(x: torch.Tensor, rate: float, train: bool, gen) -> torch.Tensor:
-    """Element dropout with hashed counters (``layers.py:FastDropout``)."""
+def fast_dropout(x: torch.Tensor, rate: float, train: bool, gen, row_axis: int = 1
+                 ) -> torch.Tensor:
+    """Element dropout with hashed counters (``layers.py:FastDropout``); the
+    row-sharded axis of a tensor of rank ≥ 3 under context parallelism is
+    ``row_axis`` (UTNet's attention probabilities (B, heads, tokens, ·): 2)."""
     if rate == 0.0 or not train:
         return x
     keep = 1.0 - rate
-    mask = _keep_mask(keep, x.shape, gen, x, rows=x.dim() >= 3)
+    mask = _keep_mask(keep, x.shape, gen, x, rows=row_axis if x.dim() >= 3 else None)
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

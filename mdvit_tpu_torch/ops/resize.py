@@ -11,11 +11,14 @@ CUDA backward accumulates with atomics, so its bits move from run to run,
 and ``torch.use_deterministic_algorithms`` refuses it.
 
 Under an end-to-end row shard (``parallel.mesh.current_context()``, mode
-``"e2e"``) ``resize_bilinear``'s H axis is this rank's block of rows of
-grids split over the ctx ranks as ``RowShard.split`` says (unequal blocks
-allowed): each rank takes, as a halo, the input rows its output rows reach,
-and applies its rows of the global row matrix restricted to them;
+``"e2e"``) both resizes' H axis is this rank's block of rows of grids split
+over the ctx ranks as ``RowShard.split`` says (unequal blocks allowed):
+each rank takes, as a halo, the input rows its output rows reach, and
+applies its rows of the global row matrix restricted to them;
 ``local_size`` turns a global target size into the rank's.
+``resize_ac_whole`` resizes the whole grid to a size every rank holds
+whole (UTNet's reduced keys and values): each rank multiplies its rows by
+its columns of the row matrix and the products are summed over the ranks.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import numpy as np
 import torch
 
 from mdvit_tpu_torch.ops.layers import device_constant
-from mdvit_tpu_torch.parallel.mesh import current_context, halo_rows
+from mdvit_tpu_torch.parallel.mesh import all_reduce_sum, current_context, halo_rows
 
 
 def resize_matrix(in_size: int, out_size: int) -> np.ndarray:
@@ -71,13 +74,14 @@ def _matrix(in_size: int, out_size: int, device: torch.device,
                            lambda: make(in_size, out_size), device)
 
 
-def _row_block_matrix(rows_in: tuple, rows_out: tuple, index: int):
+def _row_block_matrix(rows_in: tuple, rows_out: tuple, index: int,
+                      align_corners: bool = False):
     """(halo, M) of rank ``index`` resizing its block of a grid split
     ``rows_in`` over the ranks to its block of one split ``rows_out``: the
     halo every rank needs (the largest reach outside its own input block),
     and the rank's rows of the global matrix over its halo'd input rows
     (zero columns past the global edges)."""
-    m = resize_matrix(sum(rows_in), sum(rows_out))
+    m = (ac_resize_matrix if align_corners else resize_matrix)(sum(rows_in), sum(rows_out))
     first_in, first_out = np.cumsum((0,) + rows_in), np.cumsum((0,) + rows_out)
     halo = 0
     for r in range(len(rows_in)):
@@ -99,13 +103,15 @@ def local_size(size: Sequence[int]) -> tuple[int, int]:
     return ctx.local_rows(h), w
 
 
-def _resize_rows_sharded(y: torch.Tensor, h: int, ctx) -> torch.Tensor:
-    """The H pass of ``resize_bilinear`` on this rank's rows (fp32 (B, H_in,
-    W, C) → (B, h, W, C))."""
+def _resize_rows_sharded(y: torch.Tensor, h: int, ctx, align_corners: bool = False
+                         ) -> torch.Tensor:
+    """The H pass of either resize on this rank's rows (fp32 (B, H_in, W, C)
+    → (B, h, W, C))."""
     b, hi, w, c = y.shape
     rows_in, rows_out = ctx.split(hi), ctx.split(h)
-    halo, m = _row_block_matrix(rows_in, rows_out, ctx.index)
-    mat = device_constant(("resize_rows", rows_in, rows_out, ctx.index), lambda: m, y.device)
+    halo, m = _row_block_matrix(rows_in, rows_out, ctx.index, align_corners)
+    mat = device_constant(("resize_rows", rows_in, rows_out, ctx.index, align_corners),
+                          lambda: m, y.device)
     y = halo_rows(y, halo, ctx)
     return (mat @ y.reshape(b, hi + 2 * halo, w * c)).reshape(b, h, w, c)
 
@@ -138,8 +144,34 @@ def resize_bilinear_align_corners(x: torch.Tensor, size: Sequence[int]) -> torch
     if hi == h and wi == w:
         return x
     y = x.float()
-    if hi != h:  # (H_out, H_in) @ (B, H_in, W·C)
+    ctx = current_context()
+    if hi != h and ctx is not None and ctx.mode == "e2e":
+        y = _resize_rows_sharded(y, h, ctx, align_corners=True)
+    elif hi != h:  # (H_out, H_in) @ (B, H_in, W·C)
         y = (_matrix(hi, h, x.device, True) @ y.reshape(b, hi, wi * c)).reshape(b, h, wi, c)
     if wi != w:  # (W_out, W_in) @ (B·H, W_in, C)
+        y = (_matrix(wi, w, x.device, True) @ y.reshape(b * h, wi, c)).reshape(b, h, w, c)
+    return y.to(x.dtype)
+
+
+def resize_ac_whole(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
+    """``resize_bilinear_align_corners`` of the whole grid to ``size``, the
+    whole result on every rank under an end-to-end row shard: each rank
+    multiplies its rows by its columns of the (size[0], H) row matrix and
+    one all-reduce of the (B, size[0], W, C) products sums them (the
+    backward sums the ranks' gradients, each rank's use being its own),
+    then the W pass. Unsharded: ``resize_bilinear_align_corners``."""
+    ctx = current_context()
+    if ctx is None or ctx.mode != "e2e":
+        return resize_bilinear_align_corners(x, size)
+    h, w = int(size[0]), int(size[1])
+    b, hi, wi, c = x.shape
+    rows = ctx.split(hi)
+    total, start = sum(rows), sum(rows[:ctx.index])
+    cols = device_constant(("ac_columns", total, h, start, hi),
+                           lambda: ac_resize_matrix(total, h)[:, start:start + hi].copy(),
+                           x.device)
+    y = all_reduce_sum(cols @ x.float().reshape(b, hi, wi * c), ctx.group).reshape(b, h, wi, c)
+    if wi != w:
         y = (_matrix(wi, w, x.device, True) @ y.reshape(b * h, wi, c)).reshape(b, h, w, c)
     return y.to(x.dtype)

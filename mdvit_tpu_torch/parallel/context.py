@@ -22,16 +22,23 @@ Two paths, as in JAX:
   per-sample mask on every shard.
 * end to end (``model_apply_context_parallel``,
   ``make_context_parallel_train_step``): the whole forward of BASE and its
-  family, MDViT with each of its four debranches, and (forward only) the
-  MPViT, CoaT-Lite and CoaT classifiers, with the image rows sharded (JAX's
-  GSPMD path). The convs exchange ``(k−1)//2`` halo rows and pad only W
-  (non-overlapping patch embeds need none), the BatchNorms sum their
-  moments over every rank of the grid, resizes take the input rows their
-  output rows need as a halo, spatial means are summed over the ctx group,
-  and dropout hashes the unsharded step's counters, so the masks are the
-  unsharded masks' rows. CoaT's cls row of each scale lives on ctx rank 0
-  (its attention partials count it once); the head reads it there
-  (``from_first``).
+  family, MDViT with each of its four debranches, the segmentation
+  comparators (UTNet, SwinUnet, SwinUNETR; the TransFuse family forward
+  only) and (forward only) the MPViT, CoaT-Lite and CoaT classifiers, with
+  the image rows sharded (JAX's GSPMD path). The convs exchange ``(k−1)//2``
+  halo rows and pad only W (non-overlapping patch embeds need none), the
+  BatchNorms sum their moments over every rank of the grid (InstanceNorm
+  over the ctx group), resizes take the input rows their output rows need
+  as a halo, spatial means are summed over the ctx group, and dropout
+  hashes the unsharded step's counters, so the masks are the unsharded
+  masks' rows. CoaT's cls row of each scale lives on ctx rank 0 (its
+  attention partials count it once); the head reads it there
+  (``from_first``). The comparators' couplings across rows: TransFuse's
+  DeiT attends its queries over every rank's keys and values, UTNet reduces
+  its keys and values from the whole grid (a sum of the ranks' products
+  with their columns of the resize matrix), and a Swin block takes the rows
+  of its windows that other ranks hold (cyclically, for the shift); each
+  such gather's backward sums the ranks' gradients.
 
 The (data, ctx) grid (``make_dp_context_mesh``) composes both: rank r sits
 at (r // n_ctx, r % n_ctx); its ctx group is its grid row, its data group
@@ -44,7 +51,15 @@ empty), and every shallower grid's split is that split scaled by its
 stride, so strided windows line up with the rank boundaries. The gathers
 pad blocks to the largest and trim; A's and A′'s workspaces pad to the
 most chunks any rank holds, with empty partials. The one narrowing left
-against JAX: H must be a multiple of the model's total stride.
+against JAX: H must be a multiple of the row split's unit, the model's
+stride to its deepest grid (``row_split_stride``: 16 for UTNet and
+TransFuse, whose deepest grids are H/16; else the guard's stride). JAX's
+guard itself reads ``total_stride`` (32 where a model sets none, as the
+comparators do), and so does the port's.
+
+Refused, as JAX's fail: ``swin_tiny``'s forward (JAX passes the domain
+one-hot positionally, onto ``SwinClassifier``'s ``train``) and TransFuse's
+train step (its three deep-supervision maps; JAX's step casts the tuple).
 """
 from __future__ import annotations
 
@@ -158,30 +173,41 @@ def stage_apply_context_parallel(stage, x: torch.Tensor, size, group: Any,
 
 
 def _check_model(model) -> None:
-    """Raise unless every layer of ``model`` has its row-sharded form. A model
-    says so itself: its ``context_parallel_gap`` names what has none (None:
-    nothing; BASE and its family, MDViT, MPViT, CoaT). A model without the
-    attribute has not been ported to row shards."""
+    """Raise unless ``model`` runs row-sharded. A model says so itself: its
+    ``context_parallel_gap`` names what keeps it out (None: nothing; BASE and
+    its family, MDViT, the segmentation comparators, MPViT, CoaT), and a
+    model without the attribute has no row-sharded form."""
     gap = getattr(model, "context_parallel_gap", type(model).__name__)
     if gap is not None:
-        raise NotImplementedError(f"context parallelism of {gap} is not ported (BASE, its "
-                                  "family, MDViT, MPViT, CoaT-Lite and CoaT are)")
+        raise NotImplementedError(
+            f"no context parallelism for {gap} (BASE, its family, MDViT, UTNet, SwinUnet, "
+            "SwinUNETR, the TransFuse family, MPViT, CoaT-Lite and CoaT have it)")
+
+
+def _split_stride(model) -> int:
+    """The stride from the input to the model's deepest grid, whose rows the
+    ranks split (``row_split_stride``; else the guard's stride)."""
+    return getattr(model, "row_split_stride", getattr(model, "total_stride", BASE_TOTAL_STRIDE))
 
 
 def _check_min_grid(model, shape, mesh: ContextMesh) -> None:
-    """JAX's two guards, with their words, and the port's stride rule."""
+    """JAX's two guards, with their words and its stride (``total_stride``,
+    32 where the model sets none), and the port's rule that H is a multiple
+    of the row split's unit (``_split_stride``)."""
     n_ctx = mesh.n_ctx
     stride = getattr(model, "total_stride", BASE_TOTAL_STRIDE)
+    unit = _split_stride(model)
     min_grid = shape[1] // stride
     if min_grid < n_ctx:
         raise ValueError(
             f"context parallelism needs every sharded grid dim >= the ctx axis ({n_ctx}); "
             f"input H={shape[1]} reaches a {min_grid}x{min_grid} deepest grid (total "
             f"stride {stride}); use img_size >= {stride * n_ctx} or a smaller ctx axis")
-    if shape[1] % stride:
+    if shape[1] % unit:
         raise ValueError(
             f"context parallelism here scales the deepest grid's row split by each grid's "
-            f"stride: input H={shape[1]} is not a multiple of the total stride {stride}")
+            f"stride: input H={shape[1]} is not a multiple of the stride {unit} to the "
+            "deepest grid")
     if mesh.dp:
         n_data = mesh.n_data
         if shape[0] % n_data:
@@ -205,9 +231,8 @@ def _e2e(model, mesh: ContextMesh, shape) -> Iterator[tuple[int, int, RowShard |
     grid = mesh.grid if mesh.n_ctx * mesh.n_data > 1 else None
     rows = None
     if mesh.ctx is not None:
-        stride = getattr(model, "total_stride", BASE_TOTAL_STRIDE)
         rows = RowShard(mesh.ctx, mesh.ctx_index, mesh.n_ctx, "e2e",
-                        balanced_rows(shape[1] // stride, mesh.n_ctx))
+                        balanced_rows(shape[1] // _split_stride(model), mesh.n_ctx))
     with sharded(Shard(grid, row0, shape[0])), row_sharded(rows):
         yield row0, per, rows
 
@@ -239,8 +264,8 @@ def model_apply_context_parallel(model, x: torch.Tensor, domain_onehot: torch.Te
     the batch) of the global (B, H, W, 3) ``x`` sharded over ``group`` (a
     process group: a 1-D ctx mesh; or a ``ContextMesh``). Every rank passes
     the same ``x``; the outputs are gathered, the same on every rank:
-    ``seg`` (B, H, W, 1) (MDViT: the (logits, aux) pair), ``feat`` and, for
-    the classifiers, ``logits``."""
+    ``seg`` (B, H, W, 1) (MDViT: the (logits, aux) pair; TransFuse: its three
+    maps), ``feat`` and, for the classifiers, ``logits``."""
     mesh = _as_mesh(group)
     _check_model(model)
     _check_min_grid(model, x.shape, mesh)
@@ -260,8 +285,9 @@ def model_apply_context_parallel(model, x: torch.Tensor, domain_onehot: torch.Te
 
 
 def make_context_parallel_train_step(model, optimizer, group: Any):
-    """``step(x, y, onehot, gen) → loss``: one single-loss (BASE-family) train
-    step with the image rows of the global batch sharded over ``group`` (a
+    """``step(x, y, onehot, gen) → loss``: one single-loss (BASE-family,
+    UTNet, SwinUnet, SwinUNETR) train step with the image rows of the global
+    batch sharded over ``group`` (a
     process group or a ``ContextMesh``), every rank passing the same global
     (B, H, W, 3) ``x``, (B, H, W, 1) ``y`` and (B, D) one-hot, and a CPU
     generator in the same state. The loss is BCE + squared-denominator dice
@@ -271,9 +297,13 @@ def make_context_parallel_train_step(model, optimizer, group: Any):
     scaled by the grid's size: the sums' backward adds the ranks' identical
     upstream gradients) and divided by its size; then ``optimizer.step()``.
     The BatchNorms' running stats take the grid's moments, the same on every
-    rank. Returns the loss, the same on every rank."""
+    rank. Returns the loss, the same on every rank. A model whose
+    ``context_parallel_step_gap`` names a reason (TransFuse) is refused."""
     mesh = _as_mesh(group)
     _check_model(model)
+    gap = getattr(model, "context_parallel_step_gap", None)
+    if gap is not None:
+        raise NotImplementedError(f"no context-parallel train step for {gap}")
     params = list(model.parameters())
     size = mesh.n_ctx * mesh.n_data
 

@@ -24,9 +24,13 @@ convs' halos, the factorized attention's softmax and KᵀV, dropout's
 counters, spatial means, resizes and convs in the end-to-end path). The
 row-shard collectives those layers call live here too: the halo exchange
 (``halo_exchange_rows``, ``halo_rows``), ``gather_rows``, ``spatial_mean``
-and ``from_first`` (CoaT's cls rows, held by ctx rank 0). The ranks' blocks
-may differ in height (``RowShard.rows``, ``balanced_rows``): the gathers pad
-every block to the largest and trim.
+and ``from_first`` (CoaT's cls rows, held by ctx rank 0); for the
+segmentation comparators, ``gather_shared_rows`` (the whole on every rank
+for a use that differs by rank, its backward a sum over the ranks),
+``cyclic_rows`` (a shifted window's rows from whichever ranks hold them,
+wrapping from the last row to the first) and ``spatial_moments``
+(InstanceNorm's). The ranks' blocks may differ in height (``RowShard.rows``,
+``balanced_rows``): the gathers pad every block to the largest and trim.
 """
 from __future__ import annotations
 
@@ -388,6 +392,105 @@ def gather_rows(x: torch.Tensor, group: Any, dim: int = 1,
     return _GatherRows.apply(x, group, dim, tuple(sizes))
 
 
+class _GatherShared(torch.autograd.Function):
+    """Every rank's rows, concatenated on axis ``dim`` (blocks of ``sizes``
+    rows), where each rank uses the whole its own way (its queries' keys and
+    values, a window that spans ranks): the backward adds every rank's
+    gradient of the whole and keeps this rank's rows (a reduce-scatter, as
+    one all-reduce of the whole)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, sizes, index):
+        ctx.group, ctx.dim, ctx.rows = group, dim, x.shape[dim]
+        ctx.start = sum(sizes[:index])
+        return torch.cat(_gather_blocks(x, group, sizes, dim), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g.narrow(ctx.dim, ctx.start, ctx.rows), None, None, None, None
+
+
+def gather_shared_rows(x: torch.Tensor, ctx: RowShard, dim: int = 1) -> torch.Tensor:
+    """The whole of a tensor whose axis ``dim`` holds this rank's rows (or
+    row-major tokens) of the row shard, on every rank, for a use that differs
+    from rank to rank: the backward sums the ranks' gradients
+    (``_GatherShared``), where ``gather_rows`` keeps this rank's own."""
+    return _GatherShared.apply(x, ctx.group, dim, ctx.split(x.shape[dim]), ctx.index)
+
+
+def _cyclic_segments(lo: int, hi: int, total: int) -> list[tuple[int, int, int]]:
+    """Rows [lo, hi) of a grid of ``total`` rows taken modulo ``total``, as
+    (offset in the range, first grid row, rows) runs."""
+    out, p = [], lo
+    while p < hi:
+        row = p % total
+        n = min(hi - p, total - row)
+        out.append((p - lo, row, n))
+        p += n
+    return out
+
+
+class _CyclicFromNeighbours(torch.autograd.Function):
+    """Each rank's rows with ``ups[r]`` rows of the rank before it on top and
+    ``downs[r]`` rows of the rank after it below, cyclically (rank 0's rank
+    before is the last): one all-gather of every rank's last max(ups) and
+    first max(downs) rows. Backward: each borrowed row's gradient goes back
+    to its owner (a second all-gather) and is added there."""
+
+    @staticmethod
+    def forward(ctx, x, group, index, size, ups, downs):
+        up, down = max(ups), max(downs)
+        h = x.shape[1]
+        ctx.group, ctx.index, ctx.size, ctx.ups, ctx.downs = group, index, size, ups, downs
+        edges = _gather(torch.cat([x.narrow(1, h - up, up), x.narrow(1, 0, down)], 1), group)
+        before, after = edges[(index - 1) % size], edges[(index + 1) % size]
+        return torch.cat([before.narrow(1, up - ups[index], ups[index]), x,
+                          after.narrow(1, up, downs[index])], 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        i, n = ctx.index, ctx.size
+        up, down, u, d = max(ctx.ups), max(ctx.downs), ctx.ups[ctx.index], ctx.downs[ctx.index]
+        h = g.shape[1] - u - d
+        shape = (g.shape[0],) + tuple(g.shape[2:])
+        above = torch.cat([g.new_zeros((shape[0], up - u) + shape[1:]), g.narrow(1, 0, u)], 1)
+        below = torch.cat([g.narrow(1, u + h, d), g.new_zeros((shape[0], down - d) + shape[1:])],
+                          1)
+        edges = _gather(torch.cat([above, below], 1), ctx.group)
+        dx = g.narrow(1, u, h).clone()
+        dx[:, h - up:] += edges[(i + 1) % n].narrow(1, 0, up)   # my last rows, lent up
+        dx[:, :down] += edges[(i - 1) % n].narrow(1, up, down)  # my first rows, lent down
+        return dx, None, None, None, None, None
+
+
+def cyclic_rows(x: torch.Tensor, ranges: Sequence[tuple[int, int]], ctx: RowShard
+                ) -> torch.Tensor:
+    """This rank's rows [lo, hi) of the global (B, H, ...) grid, modulo H
+    (a window range that covers the rank's own rows; a shifted window's
+    range wraps past the last row to the first), ``ranges`` every rank's
+    (lo, hi) in rank order, the same on every rank. Nothing moves where every
+    range is its rank's block; the neighbours' rows where no range reaches
+    past them (``_CyclicFromNeighbours``); else the whole grid
+    (``gather_shared_rows``), cut. The backward adds each row's gradient, from
+    whichever ranks took it, into its owner's."""
+    sizes = ctx.split(x.shape[1])
+    starts = [sum(sizes[:r]) for r in range(len(sizes))]
+    ups = tuple(s - lo for s, (lo, _) in zip(starts, ranges))
+    downs = tuple(hi - s - n for s, n, (_, hi) in zip(starts, sizes, ranges))
+    if min(ups) < 0 or min(downs) < 0:
+        raise ValueError(f"row ranges {ranges} do not cover the blocks of the split {sizes}")
+    if max(ups) == 0 and max(downs) == 0:
+        return x
+    if max(max(ups), max(downs)) <= min(sizes):
+        return _CyclicFromNeighbours.apply(x, ctx.group, ctx.index, len(sizes), ups, downs)
+    lo, hi = ranges[ctx.index]
+    grid = gather_shared_rows(x, ctx)
+    runs = _cyclic_segments(lo, hi, sum(sizes))
+    return torch.cat([grid.narrow(1, row, n) for _, row, n in runs], 1)
+
+
 def spatial_mean(x: torch.Tensor) -> torch.Tensor:
     """Mean of (B, H, W, C) over H and W; under an end-to-end row shard, over
     the whole grid (the ranks' sums added, divided by the global pixels)."""
@@ -396,6 +499,22 @@ def spatial_mean(x: torch.Tensor) -> torch.Tensor:
         return x.mean(dim=(1, 2))
     total = sum(ctx.split(x.shape[1])) * x.shape[2]
     return all_reduce_sum(x.float().sum(dim=(1, 2)), ctx.group).div(total).to(x.dtype)
+
+
+def spatial_moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """fp32 mean and variance of (B, H, W, C) over H and W, (B, 1, 1, C) each,
+    in two passes (the mean, then the mean of (x − mean)²); under an
+    end-to-end row shard, over the whole grid (each pass's sums added over
+    the ctx group)."""
+    xf = x.float()
+    ctx = current_context()
+    if ctx is None or ctx.mode != "e2e":
+        mean = xf.mean(dim=(1, 2), keepdim=True)
+        return mean, (xf - mean).square().mean(dim=(1, 2), keepdim=True)
+    total = sum(ctx.split(x.shape[1])) * x.shape[2]
+    mean = all_reduce_sum(xf.sum(dim=(1, 2), keepdim=True), ctx.group) / total
+    var = all_reduce_sum((xf - mean).square().sum(dim=(1, 2), keepdim=True), ctx.group) / total
+    return mean, var
 
 
 class _FromFirst(torch.autograd.Function):

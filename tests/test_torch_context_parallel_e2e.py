@@ -4,10 +4,12 @@ in gloo ranks (``tests/torch_cp.py``): JAX's tiny BASE of
 ``tests/test_context_parallel.py`` (img 64, dims 8/16/16/24, one layer a
 stage, 8 heads, Sup) with the image rows over 2 ranks against JAX's
 unsharded forward; the train-mode forward (dropout 0.3) and one train step
-(AdamW) against the port's unsharded ones; models without a row-sharded
-form. MDViT's forward is in ``test_torch_context_parallel_mdvit.py``, the
-(2, 2) grid in ``test_torch_context_parallel_grid.py`` (a file each keeps
-``--dist loadfile``'s files short)."""
+(AdamW) against the port's unsharded ones; what JAX's context parallelism
+cannot run (``swin_tiny``'s forward, TransFuse's step) refused. MDViT's
+forward is in ``test_torch_context_parallel_mdvit.py``, the (2, 2) grid in
+``test_torch_context_parallel_grid.py``, the comparators in
+``test_torch_context_parallel_zoo.py`` (a file each keeps ``--dist
+loadfile``'s files short)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -109,16 +111,23 @@ def test_base_forward_and_step_on_two_ranks(tmp_path):
         _grads_close(r["grads"], ref["grads"])
 
 
-@pytest.mark.parametrize("name", ["SwinUnet", "UTNet"])
+@pytest.mark.parametrize("name", ["swin_tiny", "TransFuse_S"])
 def test_other_models_raise(name):
-    """A model whose layers have no row-sharded form here names itself."""
+    """What JAX's context parallelism cannot run is refused, naming the model:
+    ``swin_tiny``'s forward (JAX's entry point passes the domain one-hot
+    positionally, onto ``SwinClassifier``'s ``train``) and TransFuse's train
+    step (its three deep-supervision maps; JAX's step casts the tuple)."""
     from mdvit_tpu_torch.models.registry import build_model
-    from mdvit_tpu_torch.parallel.context import _check_model
+    from mdvit_tpu_torch.parallel.context import (make_context_parallel_train_step,
+                                                  model_apply_context_parallel)
 
-    if name == "UTNet":
-        model = build_model(name, img_size=64, device="cpu", base_chan=4, reduce_size=2)
-    else:
+    if name == "swin_tiny":
         model = build_model(name, img_size=64, device="cpu", embed_dim=24, depths=(1, 1, 1, 1),
-                            num_heads=(1, 1, 1, 1))
-    with pytest.raises(NotImplementedError, match=name):
-        _check_model(model)
+                            num_heads=(1, 1, 1, 1), num_classes=4)
+        with pytest.raises(NotImplementedError, match=name):
+            model_apply_context_parallel(model, torch.zeros(1, 64, 64, 3), None, None)
+    else:
+        model = build_model(name, img_size=64, device="cpu")
+        opt = torch.optim.SGD(model.parameters(), lr=0.1)
+        with pytest.raises(NotImplementedError, match="TransFuse.*map_x, map_1, map_2"):
+            make_context_parallel_train_step(model, opt, None)

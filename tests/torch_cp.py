@@ -18,15 +18,17 @@ from mdvit_tpu_torch.models.registry import build_model
 from mdvit_tpu_torch.ops import factorized_attention as fa
 from mdvit_tpu_torch.ops import layers
 from mdvit_tpu_torch.ops.layers import Conv2d
-from mdvit_tpu_torch.ops.resize import local_size, resize_bilinear
+from mdvit_tpu_torch.ops.resize import (local_size, resize_ac_whole, resize_bilinear,
+                                        resize_bilinear_align_corners)
 from mdvit_tpu_torch.parallel.context import (make_context_mesh,
                                               make_context_parallel_train_step,
                                               make_dp_context_mesh,
                                               model_apply_context_parallel,
                                               stage_apply_context_parallel)
-from mdvit_tpu_torch.parallel.mesh import (RowShard, from_first, gather_rows,
+from mdvit_tpu_torch.parallel.mesh import (RowShard, cyclic_rows, from_first,
+                                           gather_rows, gather_shared_rows,
                                            halo_exchange_rows, halo_rows, row_sharded,
-                                           spatial_mean)
+                                           spatial_mean, spatial_moments)
 from torch_dp import save
 
 
@@ -226,3 +228,56 @@ def classifier_worker(rank: int, spec_path: str, out_dir: str) -> None:
     save(rank, out_dir, {"logits": out["logits"].detach(), "feat": out["feat"].detach(),
                          "grads": dict(zip(names, [p.view_as(t) for p, t in zip(
                              flat.split([t.numel() for t in grads]), grads)]))})
+
+
+def zoo_worker(rank: int, spec_path: str, out_dir: str) -> None:
+    """For each case of ``spec["cases"]`` (a spec of ``e2e_worker``'s kind)
+    on the group of all ranks: ``forwards`` and, with ``case["train"]``,
+    ``train_step``."""
+    spec = torch.load(spec_path, weights_only=False)
+    mesh = make_context_mesh()
+    res = {}
+    for cid, case in spec["cases"].items():
+        res[cid] = forwards(case, mesh)
+        if case.get("train"):
+            res[cid].update(train_step(case, mesh))
+    save(rank, out_dir, res)
+
+
+def zoo_blocks_worker(rank: int, spec_path: str, out_dir: str) -> None:
+    """This rank's block (``spec["rows"]`` of the deepest grid, scaled by
+    ``spec["level"]``) of ``spec["full"]`` through the comparators'
+    row-shard pieces in ``"e2e"`` mode: ``cyclic_rows`` of each range set in
+    ``spec["ranges"]``, ``gather_shared_rows``, ``spatial_moments``, the
+    align-corners resize on row blocks (×2 and to ``spec["head"]`` rows),
+    ``resize_ac_whole`` to ``spec["reduce"]`` rows and to the grid's own
+    height (an identity row matrix), and an element dropout mask with the
+    rows on axis 2; with the
+    gradient of Σ out·g of each, g this rank's cotangent."""
+    spec = torch.load(spec_path, weights_only=False)
+    n = dist.get_world_size()
+    ctx = RowShard(dist.group.WORLD, rank, n, "e2e", spec["rows"])
+    full, cot = spec["full"], spec["cotangents"][rank]
+    h = ctx.local_rows(full.shape[1])
+    start = ctx.start(h)
+    x = full[:, start:start + h].clone().requires_grad_()
+    rs, hw = spec["reduce"], full.shape[1:3]
+    res = {}
+    with row_sharded(ctx):
+        outs = {f"cyclic_{name}": cyclic_rows(x, ranges, ctx)
+                for name, ranges in spec["ranges"].items()}
+        outs.update({
+            "shared": gather_shared_rows(x, ctx),
+            "moments": torch.cat(spatial_moments(x), -1),
+            "ac_up": resize_bilinear_align_corners(x, local_size((2 * hw[0], hw[1]))),
+            "ac_head": resize_bilinear_align_corners(x, local_size((spec["head"], hw[1]))),
+            "ac_whole": resize_ac_whole(x, (rs, rs)),
+            "ac_whole_same": resize_ac_whole(x, (hw[0], rs))})
+        with mock.patch.object(layers, "draw_seed", lambda gen: spec["seed"]):
+            tokens = torch.ones(full.shape[0], 3, h * full.shape[2], 5)
+            res["mask"] = layers.fast_dropout(tokens, 0.5, True, None, row_axis=2) != 0
+    for name, out in outs.items():
+        (dx,) = torch.autograd.grad((out * cot[name]).sum(), x)
+        res[name] = out.detach()
+        res[f"d_{name}"] = dx
+    save(rank, out_dir, res)
