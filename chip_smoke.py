@@ -163,18 +163,22 @@ Phases, each printing JSON lines; any failure exits non-zero:
             process: MDViT's stage 0 at full width (forward, gradients) and
             BASE at full width at 512², B=2 (fp32 and bf16 forwards, one
             fp32 CP train step: loss, BN stats, gradients, launches a rank),
-            step ms, device-busy ms and peak MiB a rank. Then uneven row
-            blocks: A and A′ on BASE's 480² grids split 8 : 7, on its 448²
-            grids split 4 : 4 : 3 : 3 and on ``coat_small``'s four scales
-            at 224² split 4 : 3 with the cls row on rank 0 (each rank's
-            workspace padded to the most chunks with empty partials: the
-            padded fold bit-equal to the unpadded one; against the single
-            call and the plain split), B–C′ on BASE's halo'd unequal blocks
-            against the full grid and the plain versions, and one more
-            two-rank spawn: BASE at 480² as at 512², ``mpvit_base`` and
-            ``coat_small`` at 224², B=16 (eval forward and a cross-entropy
+            step ms, device-busy ms and peak MiB a rank. Then ragged row
+            blocks (H no multiple of 32, every grid split by
+            ``row_split``): A and A′ on BASE's 470² stage grids (118 rows
+            split 56 : 62 .. 15 rows 7 : 8), on its 452² grids over four
+            ranks (the deepest 4 : 4 : 4 : 3) and on ``coat_small``'s four
+            scales at 230² (57 rows 32 : 25 .. 7 rows 4 : 3) with the cls
+            row on rank 0 (each rank's workspace padded to the most chunks
+            with empty partials: the padded fold bit-equal to the unpadded
+            one; against the single call and the plain split), B–C′ on
+            BASE's halo'd ragged blocks against the full grid and the plain
+            versions, each kernel's ms a rank beside its bound, and one more
+            two-rank spawn: BASE at 470² as at 512², ``mpvit_base`` and
+            ``coat_small`` at 230², B=16 (eval forward and a cross-entropy
             pull: logits, summed gradients, launches once a block), MDViT
-            with the DeepLabV3 debranch at 512² (eval forward). Then the
+            with the DeepLabV3 debranch at 512² (eval forward); each record
+            with every grid's rows a rank. Then the
             segmentation comparators in one more two-rank spawn at their
             published widths, fp32, B=2: UTNet, SwinUnet, SwinUNETR and
             TransFuse_S at 512², TransFuse_L_384 at 384×512 (``CP_ZOO``):
@@ -193,7 +197,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
 ``--dp-cards`` runs only the build, the dp phase with one NCCL rank on each
 visible card (a host of several cards) in place of the gloo ranks, and the
 cp phase's ranks: ctx over every card at 512², B=2, and on four cards ctx
-at 448² (deepest rows 4, 4, 3, 3), the (2, 2) data × ctx grid at B=4 and
+at 452² (deepest rows 4, 4, 4, 3; input rows 128, 128, 128, 68), the (2, 2)
+data × ctx grid at B=4 and
 SwinUnet with ctx = 4 at 512² (its windows span two ranks; the shift wraps
 from the last rank to the first), each against one process. ``--cp-only`` runs
 only the build and the cp phase; with ``--dp-cards``, only the build and the
@@ -239,7 +244,7 @@ from mdvit_tpu_torch.data.loader import gather_batch
 from mdvit_tpu_torch.data.preprocess import normalize
 from mdvit_tpu_torch.device import deterministic, no_tf32
 from mdvit_tpu_torch.models import coat, mpvit
-from mdvit_tpu_torch.models.base import split_seg
+from mdvit_tpu_torch.models.base import FATEncoderDecoder, split_seg
 from mdvit_tpu_torch.models.blocks import MHSAStage
 from mdvit_tpu_torch.models.registry import build_mdvit, build_model
 from mdvit_tpu_torch.ops import dwconv, kernels
@@ -251,7 +256,7 @@ from mdvit_tpu_torch.ops.resize import resize_bilinear
 from mdvit_tpu_torch.parallel.context import (ContextMesh, make_context_parallel_train_step,
                                               make_dp_context_mesh, model_apply_context_parallel,
                                               stage_apply_context_parallel)
-from mdvit_tpu_torch.parallel.mesh import balanced_rows
+from mdvit_tpu_torch.parallel.mesh import balanced_rows, row_split
 from mdvit_tpu_torch.predict import load_experiment, make_forward
 from mdvit_tpu_torch.train import checkpoints as ckpt
 from mdvit_tpu_torch.train import steps as steps_module
@@ -451,29 +456,39 @@ CP_BLOCKS = 16
 # BASE's four token grids at CP_IMG (the stem /4, then /2 a stage), whose row
 # halves a rank of the 2-rank step runs A and A′ on
 CP_STAGES = [(CP_IMG // 4 >> i, CP_IMG // 4 >> i, c, ch) for i, (_, _, c, ch) in enumerate(STAGES)]
-CP_TIMED = 3
+CP_TIMED = 2
 CP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_cp"
-# uneven row blocks: BASE at 480² (deepest grid 15 rows: 8 + 7 on 2 ranks;
-# its grids 120², 60², 30², 15² split 64 + 56, 32 + 28, 16 + 14, 8 + 7), B =
-# CP_B: A and A′ alone on those blocks (each rank's workspace padded to the
-# most chunks with empty partials, also first in a rank's block: the padded
-# fold bit-equal to the unpadded one) and B–C′ on each rank's halo'd block,
-# as on the four-card split of CP_CARDS_UNEVEN_IMG² and coat_small's four
-# scales at 224² (the cls row in rank 0's tokens; A and A′ only), against
-# the single call or full grid and the plain versions; then the forward and
-# a train step on 2 gloo ranks with the 512² run's gates; mpvit_base and coat_small at their
-# published widths, 224², B=16 (deepest grid 7 rows: 4 + 3; CoaT's cls rows
-# on rank 0): the eval forward's logits within CP_FWD_TOL of max(1,
-# max|logit|), the summed gradients of a cross-entropy ÷ the ranks by
-# GRAD_L2_TOL, A, B, C once a block a forward and A′, B′, C′ once a block a
-# pull on every rank; MDViT with the DeepLabV3 debranch at full width,
-# CP_DEEPLAB_IMG², B = CP_B: the eval forward's logits as the classifiers'
-# and its launches those of one process; --dp-cards: ctx over four cards at
-# CP_CARDS_UNEVEN_IMG² (14 rows: 4, 4, 3, 3) with the bf16 gate
-CP_UNEVEN_IMG = 480
+# ragged row blocks (H no multiple of the stride to the deepest grid; each
+# grid's split from ``row_split``: rank r < n − 1 holds t·u_r rows of a grid
+# of stride t to the deepest, the last rank the rest): BASE at 470² (grids
+# 470, 235, 118, 59, 30, 15; the deepest 15 rows 7 + 8 on 2 ranks, the
+# input 224 + 246, where balanced_rows' 8 + 7 would give 256 + 214; the
+# stage grids 118², 59², 30², 15² split 56 + 62, 28 + 31, 14 + 16, 7 + 8),
+# B = CP_B: A and A′ alone on those blocks (each rank's workspace padded to
+# the most chunks with empty partials, also first in a rank's block: the
+# padded fold bit-equal to the unpadded one) and B–C′ on each rank's halo'd
+# block, as on the four-card split of CP_CARDS_UNEVEN_IMG² and coat_small's
+# four scales at CP_CLS_IMG² (the cls row in rank 0's tokens; A and A′
+# only), against the single call or full grid and the plain versions, each
+# kernel's ms on each rank's block beside its bound; then the forward and a
+# train step on 2 gloo ranks with the 512² run's gates; mpvit_base and
+# coat_small at their published widths, CP_CLS_IMG², B=16 (CoaT's
+# non-overlapping windows: grids 57, 28, 14, 7, floor drops, split 32 + 25,
+# 16 + 12, 8 + 6, 4 + 3; MPViT's SAME convs: 115, 58, 29, 15, 8 split
+# 64 + 51, 32 + 26, 16 + 13, 8 + 7, 4 + 4; CoaT's cls rows on rank 0): the
+# eval forward's logits within CP_FWD_TOL of max(1, max|logit|), the summed
+# gradients of a cross-entropy ÷ the ranks by GRAD_L2_TOL, A, B, C once a
+# block a forward and A′, B′, C′ once a block a pull on every rank; MDViT
+# with the DeepLabV3 debranch at full width, CP_DEEPLAB_IMG², B = CP_B: the
+# eval forward's logits as the classifiers' and its launches those of one
+# process; --dp-cards: ctx over four cards at CP_CARDS_UNEVEN_IMG² (the
+# deepest 15 rows 4, 4, 4, 3; the input 128, 128, 128, 68) with the bf16
+# gate. Each ragged record gives every grid's rows a rank
+CP_UNEVEN_IMG = 470
 CP_CLASSIFIERS = ("mpvit_base", "coat_small")
+CP_CLS_IMG = 230
 CP_DEEPLAB_IMG = 512
-CP_CARDS_UNEVEN_IMG = 448
+CP_CARDS_UNEVEN_IMG = 452
 # the segmentation comparators under CP: one more 2-rank spawn at published
 # widths (the registry's), fp32, B = CP_B, each model at its (H, W): the
 # train-mode forward (batch moments, the running stats frozen; dropout from
@@ -531,6 +546,14 @@ COAT_VIEWS = [(56, 56, 152), (28, 28, 152), (14, 14, 152), (7, 7, 152), (28, 28,
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+@functools.lru_cache(maxsize=None)
+def nvidia_smi() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
 def eager_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -2438,27 +2461,54 @@ def cp_kernels(seed: int) -> list:
     return recs
 
 
+def grid_rows(img: int, world: int, chain=FATEncoderDecoder.row_chain) -> dict:
+    """Every grid of ``chain`` at ``img``² over ``world`` ctx ranks, as the
+    CP entry points split it (``row_split``): the deepest grid's rows a rank
+    and each grid's rows a rank, by height."""
+    units, grids = row_split(img, img, world, chain, 32)
+    return {"deepest": list(units), "grids": {str(h): list(split) for h, _, split in grids}}
+
+
 def _uneven_cases():
     """``cp_uneven_kernels``' cases: (case, B, (H, W, C, ch), each rank's rows
-    of the grid, each rank's tokens, whether timed). BASE's four grids at
-    ``CP_UNEVEN_IMG`` over ``CP_WORLD`` ranks (8 : 7, timed) and at
-    ``CP_CARDS_UNEVEN_IMG`` over 4 (4 : 4 : 3 : 3), B = ``CP_B``;
-    ``coat_small``'s four serial scales at ``CLS_IMG`` over ``CP_WORLD``
-    (4 : 3 of the 7-row grid), B = ``BATCH``, with the scale's cls row in
-    rank 0's tokens."""
+    of the grid, each rank's tokens, whether timed). BASE's four stage grids
+    at ``CP_UNEVEN_IMG`` over ``CP_WORLD`` ranks (timed) and at
+    ``CP_CARDS_UNEVEN_IMG`` over 4, B = ``CP_B``; ``coat_small``'s four
+    serial scales at ``CP_CLS_IMG`` over ``CP_WORLD``, B = ``BATCH``, with
+    the scale's cls row in rank 0's tokens; every split ``row_split``'s."""
     for img, world in ((CP_UNEVEN_IMG, CP_WORLD), (CP_CARDS_UNEVEN_IMG, 4)):
-        deep = img // 32
-        for i, (_, _, c, ch) in enumerate(STAGES):
-            h = img // 4 >> i
-            rows = tuple(h // deep * r for r in balanced_rows(deep, world))
-            yield (f"BASE {img}² over {world}", CP_B, (h, h, c, ch), rows,
-                   tuple(r * h for r in rows), world == CP_WORLD)
-    deep = CLS_IMG // 32
-    for i, c in enumerate(coat.CONFIGS["coat_small"]["embed_dims"]):
-        h = CLS_IMG // 4 >> i
-        rows = tuple(h // deep * r for r in balanced_rows(deep, CP_WORLD))
-        yield (f"coat_small {CLS_IMG}² over {CP_WORLD}", BATCH, (h, h, c, c // 8), rows,
-               tuple(r * h + (j == 0) for j, r in enumerate(rows)), False)
+        _, grids = row_split(img, img, world, FATEncoderDecoder.row_chain, 32)
+        for (_, _, c, ch), (h, w, rows) in zip(STAGES, grids[2:]):
+            yield (f"BASE {img}² over {world}", CP_B, (h, w, c, ch), rows,
+                   tuple(r * w for r in rows), world == CP_WORLD)
+    _, grids = row_split(CP_CLS_IMG, CP_CLS_IMG, CP_WORLD, coat.CoaT.row_chain, 32)
+    for c, (h, w, rows) in zip(coat.CONFIGS["coat_small"]["embed_dims"], grids[1:]):
+        yield (f"coat_small {CP_CLS_IMG}² over {CP_WORLD}", BATCH, (h, w, c, c // 8), rows,
+               tuple(r * w + (j == 0) for j, r in enumerate(rows)), False)
+
+
+def _time_halo_convs(ms: dict, bound: dict, q, v, g, wc, bc, wr, br, rows, item: int) -> None:
+    """Device ms of B, C, B′ and C′ on each rank's halo'd block of the
+    (B, H, W, C) grids (``rows`` a rank; CPE's 1 halo row a side, CRPE's 3,
+    q and the output gradient zero-padded, as the CP path sends them)
+    beside their bounds over those rows, into ``ms`` and ``bound``."""
+    batch, _, w, c = v.shape
+    for r, (r0, n) in enumerate(zip(np.cumsum((0,) + tuple(rows))[:-1].tolist(), rows)):
+        x1, g1 = _halo_rows(v, r0, n, 1), _halo_rows(g[:, r0:r0 + n], 0, n, 1)
+        q3, v3 = _halo_rows(q[:, r0:r0 + n], 0, n, 3), _halo_rows(v, r0, n, 3)
+        g3 = _halo_rows(g[:, r0:r0 + n], 0, n, 3)
+        el1, el3 = batch * (n + 2) * w * c, batch * (n + 6) * w * c
+        ms[f"B_rank{r}"] = device_ms(lambda: dwconv.cpe_conv(x1, wc, bc))
+        ms[f"C_rank{r}"] = device_ms(lambda: dwconv.crpe_conv(q3, v3, wr, br))
+        ms[f"B_bwd_rank{r}"] = device_ms(lambda: torch.ops.mdvit.cpe_conv_bwd(x1, wc, g1))
+        ms[f"C_bwd_rank{r}"] = device_ms(
+            lambda: torch.ops.mdvit.crpe_conv_bwd(q3, v3, wr, br, g3))
+        bound[f"B_rank{r}"] = bound_ms(2 * el1 * item + 10 * c * item, 20 * el1)[0]
+        bound[f"C_rank{r}"] = bound_ms(3 * el3 * item + 50 * c * item, 100 * el3)[0]
+        bound[f"B_bwd_rank{r}"] = bound_ms(3 * el1 * item + 9 * c * item + 40 * c,
+                                           38 * el1)[0]
+        bound[f"C_bwd_rank{r}"] = bound_ms(5 * el3 * item + 50 * c * item + 200 * c,
+                                           298 * el3)[0]
 
 
 def cp_uneven_kernels(seed: int) -> list:
@@ -2473,8 +2523,9 @@ def cp_uneven_kernels(seed: int) -> list:
     against the full grid and the plain versions (``_cp_halo_convs``; not
     at CoaT's cls-row tokens, whose convs see only image rows); device ms of
     each rank's A (its partials and its apply over the gathered, padded
-    workspace) and A′ beside their bounds (phase 2's work on the rank's
-    rows) at BASE's 8 : 7 blocks."""
+    workspace), A′, and B–C′ on its halo'd block (``_time_halo_convs``)
+    beside their bounds (phase 2's work on the rank's rows) at BASE's
+    ``CP_UNEVEN_IMG`` blocks."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 66)
     recs = []
     for case, batch, (h, w, c, ch), rows, tokens, timed in _uneven_cases():
@@ -2504,14 +2555,16 @@ def cp_uneven_kernels(seed: int) -> list:
             single_tol = CP_REL_TOL if dtype == torch.float32 and aligned else TOL[dtype]["rel"]
             ok_single = rel_single <= single_tol
             halo, halo_ok = None, True
+            item = q.element_size()
+            ms, bound = {}, {}
             if n == h * w:
                 wc, bc = rnd(3, 3, c, std=0.2).contiguous(), rnd(c, std=0.1)
                 wr, br = rnd(7, 7, c, std=0.1).contiguous(), rnd(c, std=0.1)
                 qg, vg, gg = (t.reshape(batch, h, w, c) for t in (q, v, g))
                 halo, halo_ok = _cp_halo_convs(vg, qg, vg, gg, wc, bc, wr, br, rows, dtype)
+                if timed:
+                    _time_halo_convs(ms, bound, qg, vg, gg, wc, bc, wr, br, rows, item)
             cuts = np.cumsum((0,) + tokens)
-            item = q.element_size()
-            ms, bound = {}, {}
             for r in range(len(tokens) if timed else 0):
                 sl = slice(int(cuts[r]), int(cuts[r + 1]))
                 qr, kr, vr, gr = (t[:, sl] for t in (q, k, v, g))
@@ -2529,7 +2582,7 @@ def cp_uneven_kernels(seed: int) -> list:
                 ms["A_bwd_single"] = device_ms(
                     lambda: torch.ops.mdvit.factorized_attention_bwd(q, k, v, g, ch, scale))
             rec = {"phase": "cp", "part": "uneven_kernels", "case": case,
-                   "shape": [batch, n, c, ch], "rows_per_rank": list(rows),
+                   "shape": [batch, n, c, ch], "grid": [h, w], "rows_per_rank": list(rows),
                    "tokens_per_rank": list(tokens), "dtype": str(dtype).replace("torch.", ""),
                    "chunks_per_rank": {"fwd": [-(-t // fa.chunk_rows(ch, False)) for t in tokens],
                                        "bwd": [-(-t // fa.chunk_rows(ch, True)) for t in tokens]},
@@ -2537,7 +2590,7 @@ def cp_uneven_kernels(seed: int) -> list:
                    "split_vs_plain": [ch_["max_rel_err"] for ch_ in checks],
                    "padded_bit_equal_unpadded": pad_exact,
                    "empty_first_bit_equal_empty_last": front_exact,
-                   "halo": halo, "ms": ms, "bound_ms": bound,
+                   "halo": halo, "ms": ms, "bound_ms": bound, "nvidia_smi": nvidia_smi(),
                    "tol": {"split_vs_single_rel": single_tol, **TOL[dtype]}}
             emit(rec)
             recs.append(rec)
@@ -2758,14 +2811,14 @@ def cp_group_of_one(seed: int) -> dict:
 
 
 def _cp_classifier(name: str, seed: int, group) -> dict:
-    """``name`` at its published widths, 224², B=16, on the card: the eval
+    """``name`` at its published widths, ``CP_CLS_IMG``², B=16, on the card: the eval
     forward through ``model_apply_context_parallel`` over ``group`` (None:
     one process) with the launch counters read around it, then one backward
     pull of the mean cross-entropy with the counters read around it, its
     gradients summed over the ranks ÷ their count. One process saves its
     calibrated weights (MPViT's BNs, ``_cls_model``), logits and gradients
     to ``CP_DIR``; a rank loads the weights and compares with the rest."""
-    x, labels = _cls_input(seed)
+    x, labels = _cls_input(seed, CP_CLS_IMG)
     ref_path = CP_DIR / f"single_{name}.pt"
     if group is None:
         model = _cls_model(name, torch.float32, seed, x)
@@ -2831,8 +2884,8 @@ def _cp_more_records(ranks: list, single: dict) -> list:
     """The uneven splits' records, each with ``ok``: BASE at
     ``CP_UNEVEN_IMG`` as the 512² run, the classifiers and DeepLabV3."""
     base = {"phase": "cp", "part": "uneven_ranks", "world": len(ranks), "backend": "gloo",
-            "img": CP_UNEVEN_IMG, "B": CP_B,
-            "deepest_rows_per_rank": list(balanced_rows(CP_UNEVEN_IMG // 32, len(ranks))),
+            "img": CP_UNEVEN_IMG, "B": CP_B, "nvidia_smi": nvidia_smi(),
+            "rows_per_rank": grid_rows(CP_UNEVEN_IMG, len(ranks)),
             **_cp_compare([r["base"] for r in ranks], single["base"], False),
             "tol": {"logits": CP_FWD_TOL, "logits_bf16_vs_fp32_factor": CP_BF16_FACTOR,
                     "loss_rel": CP_LOSS_RTOL, "bn_rel": CP_BN_TOL, "grad_l2": GRAD_L2_TOL}}
@@ -2842,8 +2895,10 @@ def _cp_more_records(ranks: list, single: dict) -> list:
         blocks = CLASSIFIERS[name]
         one = single["classifiers"][name]
         per = [r["classifiers"][name] for r in ranks]
+        chain = (mpvit.MPViT if name.startswith("mpvit") else coat.CoaT).row_chain
         rec = {"phase": "cp", "part": "classifier", "model": name, "world": len(ranks),
-               "img": CLS_IMG, "B": BATCH, "blocks": blocks,
+               "img": CP_CLS_IMG, "B": BATCH, "blocks": blocks, "nvidia_smi": nvidia_smi(),
+               "rows_per_rank": grid_rows(CP_CLS_IMG, len(ranks), chain),
                "logits_err": max(p["logits_err"] for p in per),
                "grad_l2_rel": max(p["grad_l2_rel"] for p in per),
                "forward_launches_per_rank": [p["forward_launches"] for p in per],
@@ -3102,7 +3157,7 @@ def phase_cp(seed: int) -> dict:
             for k in cls:
                 cls[k] += launches[k]
     return {f"cp train step fp32 BASE {CP_IMG}, rank 0 of {CP_WORLD}": ranks[0]["launches"],
-            f"cp train step fp32 BASE {CP_UNEVEN_IMG} (uneven rows), rank 0 of {CP_WORLD}":
+            f"cp train step fp32 BASE {CP_UNEVEN_IMG} (ragged rows), rank 0 of {CP_WORLD}":
                 more[0]["base"]["launches"],
             f"cp forward + pull {' + '.join(CP_CLASSIFIERS)}, rank 0 of {CP_WORLD}": cls,
             f"cp forward MDViT_DeepLabV3 {CP_DEEPLAB_IMG}, rank 0 of {CP_WORLD}":
@@ -3125,8 +3180,8 @@ def phase_cp_cards(seed: int) -> None:
         single = _cp_run(seed, None, stage=False, batch=batch, img=img)
         ranks = _cp_spawn(seed, world, "nccl", grid, stage=False, batch=batch, img=img)
         rec = {"phase": "cp", "part": name, "world": world, "backend": "nccl",
-               "grid": grid or [1, world], "img": img, "B": batch,
-               "deepest_rows_per_rank": list(balanced_rows(img // 32, grid[1] if grid else world)),
+               "grid": grid or [1, world], "img": img, "B": batch, "nvidia_smi": nvidia_smi(),
+               "rows_per_rank": grid_rows(img, grid[1] if grid else world),
                **_cp_compare(ranks, single, False)}
         emit(rec)
         if not _cp_ok(rec, False):
@@ -3406,10 +3461,10 @@ def phase_zoo(seed: int) -> dict:
 # ----------------------------------------------------------------- phase 15
 
 
-def _cls_input(seed: int):
-    """B=16 normal images at 224² and their labels."""
+def _cls_input(seed: int, img: int = CLS_IMG):
+    """B=16 normal images at ``img``² and their labels."""
     gen = torch.Generator().manual_seed(seed + 17)
-    x = torch.randn(BATCH, CLS_IMG, CLS_IMG, 3, generator=gen)
+    x = torch.randn(BATCH, img, img, 3, generator=gen)
     return x.cuda(), torch.randint(0, 1000, (BATCH,), generator=gen).cuda()
 
 
@@ -3551,9 +3606,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    smi = nvidia_smi()
     print(smi, flush=True)
     emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "device": torch.cuda.get_device_name(0),

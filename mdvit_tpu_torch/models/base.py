@@ -66,6 +66,11 @@ class PatchEmbed(nn.Module):
 
 
 class FATEncoderDecoder(nn.Module):
+    # the row-changing ops from the input to the bridge grid
+    # (parallel/context.py): the two stride-2 stems and the strided patch
+    # embeds of stages 2 to 4, 3×3 with SAME padding (⌈R/2⌉ rows)
+    row_chain = (("same", 2),) * 5
+
     def __init__(self, num_layers: Sequence[int] = (2, 2, 2, 2),
                  embed_dims: Sequence[int] = (64, 128, 320, 512),
                  mlp_ratios: Sequence[float] = (8, 8, 4, 4),

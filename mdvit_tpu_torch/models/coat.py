@@ -159,6 +159,9 @@ class CoaT(nn.Module):
 
     context_parallel_gap = None
     total_stride = 32  # the /4 patch embed, then /2 at scales 2 to 4
+    # the row-changing ops (parallel/context.py): the patch embeds,
+    # non-overlapping windows (⌊R/s⌋ rows, the last rows dropped)
+    row_chain = (("tiled", 4),) + (("tiled", 2),) * 3
 
     def __init__(self, patch_size: int = 4, num_classes: int = 1000,
                  embed_dims: Sequence[int] = (64, 128, 256, 320),

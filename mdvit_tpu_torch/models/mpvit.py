@@ -58,6 +58,9 @@ class MPViT(nn.Module):
 
     context_parallel_gap = None
     total_stride = 32  # the stem /4, then /2 at stages 2 to 4
+    # the row-changing ops (parallel/context.py): two stride-2 stems and the
+    # first embeds of stages 2 to 4, 3×3 with SAME padding (⌈R/2⌉ rows)
+    row_chain = (("same", 2),) * 5
 
     def __init__(self, num_classes: int = 1000, num_path: Sequence[int] = (2, 3, 3, 3),
                  num_layers: Sequence[int] = (1, 2, 4, 1),

@@ -170,7 +170,7 @@ class ViTAttention(nn.Module):
         q, k, v = qkv
         ctx = current_context()
         if ctx is not None and ctx.mode == "e2e":  # every rank's keys and values
-            k, v = gather_shared_rows(qkv[1:], ctx, dim=3)
+            k, v = gather_shared_rows(qkv[1:], ctx, dim=3, tokens=True)
         attn = torch.softmax(scores(q, k) * (c // h) ** -0.5, dim=-1)
         out = attend(attn, v, x.dtype)                           # (b, h, n, ch)
         if self.sup:
@@ -218,7 +218,7 @@ class DeiT(nn.Module):
         pos = self.pos_embed
         ctx = current_context()
         if ctx is not None and ctx.mode == "e2e":  # this rank's token rows
-            first = ctx.start(x.shape[1])
+            first = ctx.start(x.shape[1], tokens=True)
             pos = pos[:, first:first + x.shape[1]]
         x = fast_dropout(x + pos.to(x.dtype), self.drop, train, gen)
         for i in range(self.depth):

@@ -119,13 +119,14 @@ def draw_seed(gen: torch.Generator | None) -> int:
 
 def _row_block_counters(shape, row0: int, ctx, device, axis: int = 1) -> torch.Tensor:
     """Counters of a (B, ..., A, ...) block whose axis ``axis`` is this rank's
-    rows (or row-major tokens) of an unsharded (total batch, ..., Σ ranks' A,
-    ...) tensor: sample row0 + b, that axis's index (the rank's first global
-    row) + a, the other axes as they are."""
+    rows (a (B, H, W, C) grid's: two axes follow it) or row-major tokens (any
+    other layout) of an unsharded (total batch, ..., Σ ranks' A, ...) tensor:
+    sample row0 + b, that axis's index (the rank's first global row or
+    token) + a, the other axes as they are."""
     shape = tuple(int(s) for s in shape)
     b, a = shape[0], shape[axis]
     pre, post = math.prod(shape[1:axis]), math.prod(shape[axis + 1:])
-    split = ctx.split(a)
+    split = ctx.split(a, tokens=len(shape) - axis != 3)
     start = sum(split[:ctx.index])
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)  # noqa: E731
     outer = (row0 + ar(b))[:, None] * pre + ar(pre)[None, :]  # (b, pre)
@@ -176,7 +177,8 @@ def fast_dropout(x: torch.Tensor, rate: float, train: bool, gen, row_axis: int =
                  ) -> torch.Tensor:
     """Element dropout with hashed counters (``layers.py:FastDropout``); the
     row-sharded axis of a tensor of rank ≥ 3 under context parallelism is
-    ``row_axis`` (UTNet's attention probabilities (B, heads, tokens, ·): 2)."""
+    ``row_axis`` (UTNet's attention probabilities (B, heads, tokens, ·): 2):
+    a grid's rows where two axes (W, C) follow it, else row-major tokens."""
     if rate == 0.0 or not train:
         return x
     keep = 1.0 - rate
@@ -225,15 +227,20 @@ class Conv2d(nn.Conv2d):
         ctx = current_context()
         if ctx is not None and ctx.mode == "e2e" and self.kernel_size[0] > 1:
             # row-sharded: the neighbours' rows replace the row padding (stride
-            # s reads global rows s·o − p .., s | the rank's first row and rows);
+            # s reads global rows s·o − p ..: s divides the rank's first row
+            # and, on every rank but the last, its rows; the last rank's
+            # ⌈h/s⌉ (SAME) or ⌊h/s⌋ (tiled) output rows end the grid's);
             # non-overlapping windows (kernel = stride, no padding) need none
             k, s, p = self.kernel_size[0], self.stride[0], padding[0]
             same = self.dilation[0] * (k - 1) == 2 * p
             tiled = p == 0 and k == s
-            if not (same or tiled) or x.shape[1] % s or ctx.start(x.shape[1]) % s:
+            last = ctx.index == ctx.size - 1
+            if (not (same or tiled) or (x.shape[1] % s and not last)
+                    or ctx.start(x.shape[1]) % s):
                 raise NotImplementedError(
                     "a row-sharded conv needs SAME row padding or non-overlapping windows, "
-                    "and a rank's rows and first row divisible by the stride")
+                    "a rank's first row divisible by the stride, and so its rows but on "
+                    "the last rank")
             x = halo_rows(x, p, ctx)
             padding = (0, padding[1])
         y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(dt), bias,

@@ -45,17 +45,28 @@ at (r // n_ctx, r % n_ctx); its ctx group is its grid row, its data group
 its column, and the batch's sums (BN moments, loss terms, gradients) run
 over the whole grid.
 
-Uneven rows: the deepest grid's G rows split as evenly as they go (the
-first G mod n ranks one row more; JAX's guard keeps G ≥ n, so no rank is
-empty), and every shallower grid's split is that split scaled by its
-stride, so strided windows line up with the rank boundaries. The gathers
-pad blocks to the largest and trim; A's and A′'s workspaces pad to the
-most chunks any rank holds, with empty partials. The one narrowing left
-against JAX: H must be a multiple of the row split's unit, the model's
-stride to its deepest grid (``row_split_stride``: 16 for UTNet and
-TransFuse, whose deepest grids are H/16; else the guard's stride). JAX's
-guard itself reads ``total_stride`` (32 where a model sets none, as the
-comparators do), and so does the port's.
+Any height JAX's guards accept: a model lists its chain of row-changing
+ops (``row_chain``: SAME-padded stride-s convs, ⌈R/s⌉ rows, or
+non-overlapping s-windows, ⌊R/s⌋), and ``row_split`` builds every grid's
+split from the input H. Rank r < n − 1 holds t·u_r rows of a grid whose
+stride to the deepest grid is t, the last rank the rest, so every rank
+boundary is a multiple of each op's stride: a strided conv's window never
+needs a row its halo does not bring, and no tiled window spans two ranks.
+The deepest shares u make the largest block of input rows as small as it
+can be (ties to the most even deepest split, then to the first ranks):
+BASE at 100² over 2 ranks splits its grids 100, 50, 25, 13, 7, 4 as
+64 : 36, 32 : 18, 16 : 9, 8 : 5, 4 : 3, 2 : 2. At H a multiple of the
+stride to the deepest grid this is ``balanced_rows`` of that grid scaled.
+Decoder grids, MDViT's H/4 debranch grid and the final resize to H take
+the split of the encoder grid of the same height. The gathers pad blocks
+to the largest and trim; A's and A′'s workspaces pad to the most chunks
+any rank holds, with empty partials. A model without a chain (UTNet and
+TransFuse, whose deepest grids are H/16, ``row_split_stride``; SwinUnet,
+SwinUNETR, H/32) runs at H a multiple of that stride: off it (100², say)
+its forward, as JAX's, has no form, and the port refuses with a
+``ValueError`` before any collective. JAX's guard itself reads
+``total_stride`` (32 where a model sets none, as the comparators do), and
+so does the port's.
 
 Refused, as JAX's fail: ``swin_tiny``'s forward (JAX passes the domain
 one-hot positionally, onto ``SwinClassifier``'s ``train``) and TransFuse's
@@ -71,8 +82,8 @@ import torch.distributed as dist
 
 from mdvit_tpu_torch.device import deterministic, no_tf32
 from mdvit_tpu_torch.models.base import split_seg
-from mdvit_tpu_torch.parallel.mesh import (RowShard, Shard, all_reduce_sum, balanced_rows,
-                                           gather_rows, row_sharded, sharded)
+from mdvit_tpu_torch.parallel.mesh import (RowShard, Shard, all_reduce_sum, gather_rows,
+                                           row_sharded, row_split, sharded)
 from mdvit_tpu_torch.train.losses import seg_loss_from_sums, seg_loss_sums
 
 # total stem + patch-embed downsampling to the deepest (bridge) grid of
@@ -185,29 +196,24 @@ def _check_model(model) -> None:
 
 
 def _split_stride(model) -> int:
-    """The stride from the input to the model's deepest grid, whose rows the
-    ranks split (``row_split_stride``; else the guard's stride)."""
+    """The stride from the input to the deepest grid of a model without a
+    ``row_chain`` (``row_split_stride``; else the guard's stride)."""
     return getattr(model, "row_split_stride", getattr(model, "total_stride", BASE_TOTAL_STRIDE))
 
 
 def _check_min_grid(model, shape, mesh: ContextMesh) -> None:
     """JAX's two guards, with their words and its stride (``total_stride``,
-    32 where the model sets none), and the port's rule that H is a multiple
-    of the row split's unit (``_split_stride``)."""
+    32 where the model sets none); then, for a model without a
+    ``row_chain``, its own height rule (H a multiple of ``_split_stride``),
+    where its forward, as JAX's, has no form at another H."""
     n_ctx = mesh.n_ctx
     stride = getattr(model, "total_stride", BASE_TOTAL_STRIDE)
-    unit = _split_stride(model)
     min_grid = shape[1] // stride
     if min_grid < n_ctx:
         raise ValueError(
             f"context parallelism needs every sharded grid dim >= the ctx axis ({n_ctx}); "
             f"input H={shape[1]} reaches a {min_grid}x{min_grid} deepest grid (total "
             f"stride {stride}); use img_size >= {stride * n_ctx} or a smaller ctx axis")
-    if shape[1] % unit:
-        raise ValueError(
-            f"context parallelism here scales the deepest grid's row split by each grid's "
-            f"stride: input H={shape[1]} is not a multiple of the stride {unit} to the "
-            "deepest grid")
     if mesh.dp:
         n_data = mesh.n_data
         if shape[0] % n_data:
@@ -218,21 +224,28 @@ def _check_min_grid(model, shape, mesh: ContextMesh) -> None:
                 f"deepest grid: batch/data = {shape[0] // n_data}, grid/ctx = "
                 f"{min_grid // n_ctx} (JAX's SPMD miscompiles the 1x1-tile case; the "
                 "port keeps its guard). Grow the batch, the image, or shrink the mesh.")
+    unit = _split_stride(model)
+    if getattr(model, "row_chain", None) is None and shape[1] % unit:
+        raise ValueError(
+            f"{type(model).__name__} runs at H a multiple of {unit} only, the stride to its "
+            f"deepest grid: its forward (as JAX's) has no form at input H={shape[1]}")
 
 
 @contextlib.contextmanager
 def _e2e(model, mesh: ContextMesh, shape) -> Iterator[tuple[int, int, RowShard | None]]:
-    """The end-to-end shard of a global (B, H, ...) input of ``shape``: the
-    batch's sums over the grid, this rank's batch rows, and its image rows,
-    the deepest grid's rows balanced over the ctx ranks. Yields (first batch
-    row, batch rows, the row shard; None without a ctx group)."""
+    """The end-to-end shard of a global (B, H, W, ...) input of ``shape``:
+    the batch's sums over the grid, this rank's batch rows, and its image
+    rows, every grid's split over the ctx ranks by ``row_split`` from the
+    model's ``row_chain``. Yields (first batch row, batch rows, the row
+    shard; None without a ctx group)."""
     per = shape[0] // mesh.n_data
     row0 = mesh.data_index * per
     grid = mesh.grid if mesh.n_ctx * mesh.n_data > 1 else None
     rows = None
     if mesh.ctx is not None:
-        rows = RowShard(mesh.ctx, mesh.ctx_index, mesh.n_ctx, "e2e",
-                        balanced_rows(shape[1] // _split_stride(model), mesh.n_ctx))
+        units, grids = row_split(shape[1], shape[2], mesh.n_ctx,
+                                 getattr(model, "row_chain", None), _split_stride(model))
+        rows = RowShard(mesh.ctx, mesh.ctx_index, mesh.n_ctx, "e2e", units, grids)
     with sharded(Shard(grid, row0, shape[0])), row_sharded(rows):
         yield row0, per, rows
 

@@ -29,12 +29,13 @@ segmentation comparators, ``gather_shared_rows`` (the whole on every rank
 for a use that differs by rank, its backward a sum over the ranks),
 ``cyclic_rows`` (a shifted window's rows from whichever ranks hold them,
 wrapping from the last row to the first) and ``spatial_moments``
-(InstanceNorm's). The ranks' blocks may differ in height (``RowShard.rows``,
-``balanced_rows``): the gathers pad every block to the largest and trim.
+(InstanceNorm's). The ranks' blocks may differ in height (``row_split``,
+``RowShard.split``): the gathers pad every block to the largest and trim.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 import os
 from typing import Any, Iterator, NamedTuple, Sequence
 
@@ -202,41 +203,71 @@ class RowShard(NamedTuple):
     (the whole model; dropout hashes the unsharded masks' global counters).
 
     ``rows`` is each rank's share of the deepest grid's rows (empty: one
-    each, the even split of the stage path). Every grid is that split scaled
-    by its stride to the deepest grid, so a rank holding ``h`` rows of some
-    grid finds every rank's rows of it from ``h`` alone (``split``), and
-    every rank's first row at a level is a multiple of that level's stride.
-    A tensor of row-major tokens (``h·w`` a rank) splits the same way."""
+    each, the even split of the stage path). ``grids`` holds every grid of
+    the model's chain of row-changing ops at this input (``row_split``), as
+    (height, width, every rank's rows): rank r < n − 1 holds t·rows[r] rows
+    of a grid whose stride to the deepest grid is t, the last rank the rest,
+    so every rank boundary is a multiple of each op's stride. A layer finds
+    every rank's rows of a grid from the count it holds (``split``: rows,
+    or row-major tokens, ``h·w`` a rank). Without ``grids``, or where every
+    grid's split is ``rows`` scaled by its stride (H a multiple of the stride
+    to the deepest grid), a grid off the table splits as ``rows`` scaled."""
 
     group: Any
     index: int
     size: int
     mode: str = "stage"
     rows: tuple = ()
+    grids: tuple = ()
 
     @property
     def units(self) -> tuple:
         return self.rows or (1,) * self.size
 
-    def split(self, h: int) -> tuple:
-        """Every rank's rows of the grid (or token tensor) of which this rank
-        holds ``h``, in rank order."""
+    @property
+    def scaled(self) -> bool:
+        """Whether every grid's split is ``units`` scaled (no table is)."""
         units = self.units
-        level, rem = divmod(h, units[self.index])
-        if rem or level == 0:
-            raise ValueError(f"{h} local rows are no level of the row split {units}")
+        return all(split[r] * units[self.index] == split[self.index] * units[r]
+                   for _, _, split in self.grids for r in range(self.size))
+
+    def _scaled(self, extent: int, what: str) -> tuple:
+        units = self.units
+        level, rem = divmod(extent, units[self.index])
+        if rem or level == 0 or not self.scaled:
+            raise ValueError(f"{extent} local {what} are no grid of the row split {units} "
+                             f"(grids {[g[:2] for g in self.grids]})")
         return tuple(level * u for u in units)
 
-    def start(self, h: int) -> int:
-        """The global index of this rank's first of its ``h`` rows."""
-        return sum(self.split(h)[:self.index])
+    def split(self, extent: int, tokens: bool = False) -> tuple:
+        """Every rank's rows (``tokens``: row-major tokens) of the grid of
+        which this rank holds ``extent``, in rank order. Two grids that give
+        this rank ``extent`` with different splits raise: no guess."""
+        found = {tuple(r * w for r in split) if tokens else split
+                 for _, w, split in self.grids
+                 if split[self.index] * (w if tokens else 1) == extent}
+        if len(found) > 1:
+            raise ValueError(f"{extent} local {'tokens' if tokens else 'rows'} fit several "
+                             f"grids of the row split: {sorted(found)}")
+        if found:
+            return found.pop()
+        return self._scaled(extent, "tokens" if tokens else "rows")
+
+    def start(self, extent: int, tokens: bool = False) -> int:
+        """The global index of this rank's first of its ``extent`` rows
+        (``tokens``: tokens)."""
+        return sum(self.split(extent, tokens)[:self.index])
 
     def local_rows(self, total: int) -> int:
         """This rank's rows of a grid of ``total`` rows."""
+        for height, _, split in self.grids:
+            if height == total:
+                return split[self.index]
         units = self.units
         level, rem = divmod(total, sum(units))
-        if rem or level == 0:
-            raise ValueError(f"{total} rows are no level of the row split {units}")
+        if rem or level == 0 or not self.scaled:
+            raise ValueError(f"{total} rows are no grid of the row split {units} "
+                             f"(grids {[g[:2] for g in self.grids]})")
         return level * units[self.index]
 
 
@@ -245,6 +276,60 @@ def balanced_rows(total: int, n: int) -> tuple:
     ``total % n`` ranks one more."""
     per, extra = divmod(total, n)
     return tuple(per + (r < extra) for r in range(n))
+
+
+def chain_sizes(size: int, chain: Sequence[tuple[str, int]]) -> list[int]:
+    """The extent of every grid of ``chain`` from an input of ``size``: a
+    ``("same", s)`` op (a stride-s conv with SAME padding) gives ⌈R/s⌉, a
+    ``("tiled", s)`` op (non-overlapping s-windows) ⌊R/s⌋."""
+    out = [size]
+    for kind, s in chain:
+        out.append(-(-out[-1] // s) if kind == "same" else out[-1] // s)
+    return out
+
+
+def _chain_split(heights: Sequence[int], strides: Sequence[int], units: Sequence[int]
+                 ) -> list[tuple]:
+    """Every grid's split of the deepest split ``units``: t·u_r for r < n − 1,
+    the rest on the last rank."""
+    out = []
+    for height, t in zip(heights, strides):
+        first = tuple(t * u for u in units[:-1])
+        out.append(first + (height - sum(first),))
+    return out
+
+
+def row_split(h: int, w: int, n: int, chain: Sequence[tuple[str, int]] | None,
+              stride: int) -> tuple[tuple, tuple]:
+    """(the deepest grid's rows a rank, ``RowShard.grids``) of an h×w input
+    over ``n`` ranks. Without a ``chain`` (a model whose grids are H over a
+    power of two, run at H a multiple of ``stride``) the deepest H/stride rows
+    split by ``balanced_rows`` and there is no table. With one, the last
+    rank's share u of the deepest grid is chosen, the others' balanced over
+    the rest: the largest block of the input rows as small as it can be;
+    ties to the most even deepest split, then to the first ranks. At H a
+    multiple of the chain's stride this is ``balanced_rows``. A split that
+    leaves a rank no rows of some grid, or the last rank the same rows of two
+    grids (a local count would not say which), is not taken."""
+    if chain is None:
+        return balanced_rows(h // stride, n), ()
+    heights, widths = chain_sizes(h, chain), chain_sizes(w, chain)
+    strides = [math.prod(s for _, s in chain[i:]) for i in range(len(heights))]
+    deep = heights[-1]
+    best, best_key = None, None
+    for last in range(1, deep - n + 2) if n > 1 else (deep,):
+        units = (balanced_rows(deep - last, n - 1) if n > 1 else ()) + (last,)
+        splits = _chain_split(heights, strides, units)
+        last_rows = [split[-1] for split in splits]
+        if min(last_rows) < 1 or len(set(last_rows)) < len(last_rows):
+            continue
+        key = (max(splits[0]), sorted(units, reverse=True), [-u for u in units])
+        if best_key is None or key < best_key:
+            best, best_key = units, key
+    if best is None:
+        raise ValueError(f"no row split of {h} rows over {n} ranks gives every rank rows of "
+                         f"every grid {heights}")
+    return best, tuple(zip(heights, widths, _chain_split(heights, strides, best)))
 
 
 _context: RowShard | None = None
@@ -412,12 +497,14 @@ class _GatherShared(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.start, ctx.rows), None, None, None, None
 
 
-def gather_shared_rows(x: torch.Tensor, ctx: RowShard, dim: int = 1) -> torch.Tensor:
-    """The whole of a tensor whose axis ``dim`` holds this rank's rows (or
-    row-major tokens) of the row shard, on every rank, for a use that differs
-    from rank to rank: the backward sums the ranks' gradients
-    (``_GatherShared``), where ``gather_rows`` keeps this rank's own."""
-    return _GatherShared.apply(x, ctx.group, dim, ctx.split(x.shape[dim]), ctx.index)
+def gather_shared_rows(x: torch.Tensor, ctx: RowShard, dim: int = 1,
+                       tokens: bool = False) -> torch.Tensor:
+    """The whole of a tensor whose axis ``dim`` holds this rank's rows (or,
+    with ``tokens``, row-major tokens) of the row shard, on every rank, for
+    a use that differs from rank to rank: the backward sums the ranks'
+    gradients (``_GatherShared``), where ``gather_rows`` keeps this rank's
+    own."""
+    return _GatherShared.apply(x, ctx.group, dim, ctx.split(x.shape[dim], tokens), ctx.index)
 
 
 def _cyclic_segments(lo: int, hi: int, total: int) -> list[tuple[int, int, int]]:

@@ -11,6 +11,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from mdvit_tpu_torch.models.base import FATEncoderDecoder
 from mdvit_tpu_torch.models.blocks import MHSAStage
 from mdvit_tpu_torch.models.coat import CoaT
 from mdvit_tpu_torch.models.mpvit import MPViT
@@ -28,7 +29,7 @@ from mdvit_tpu_torch.parallel.context import (make_context_mesh,
 from mdvit_tpu_torch.parallel.mesh import (RowShard, cyclic_rows, from_first,
                                            gather_rows, gather_shared_rows,
                                            halo_exchange_rows, halo_rows, row_sharded,
-                                           spatial_mean, spatial_moments)
+                                           row_split, spatial_mean, spatial_moments)
 from torch_dp import save
 
 
@@ -278,6 +279,48 @@ def zoo_blocks_worker(rank: int, spec_path: str, out_dir: str) -> None:
             res["mask"] = layers.fast_dropout(tokens, 0.5, True, None, row_axis=2) != 0
     for name, out in outs.items():
         (dx,) = torch.autograd.grad((out * cot[name]).sum(), x)
+        res[name] = out.detach()
+        res[f"d_{name}"] = dx
+    save(rank, out_dir, res)
+
+
+def ragged_blocks_worker(rank: int, spec_path: str, out_dir: str) -> None:
+    """This rank's rows of BASE's grids at ``spec["img"]``² (``row_split`` of
+    the trunk's chain over the group of all ranks; ``spec["grids"]``: height
+    → the whole (B, R, R, C) grid) through the row-shard pieces in ``"e2e"``
+    mode: the SAME stride-2 3×3 conv from ``spec["conv_in"]`` rows, a 3-row
+    halo of the deepest grid, the resizes along ``spec["resizes"]`` (each
+    from its grid to the next), and element dropout masks of the conv
+    input's rows and of its row-major tokens; with the gradient of Σ out·g
+    of each, g this rank's cotangent; and every grid's split and start."""
+    spec = torch.load(spec_path, weights_only=False)
+    n, img = dist.get_world_size(), spec["img"]
+    ctx = RowShard(dist.group.WORLD, rank, n, "e2e",
+                   *row_split(img, img, n, FATEncoderDecoder.row_chain, 32))
+    cot = spec["cotangents"][rank]
+    x = {}
+    for height, full in spec["grids"].items():
+        h = ctx.local_rows(height)
+        start = ctx.start(h)
+        x[height] = full[:, start:start + h].clone().requires_grad_()
+    conv = Conv2d(spec["grids"][spec["conv_in"]].shape[3], 4, 3, 2, 1)
+    conv.load_state_dict(spec["conv"])
+    deep = min(spec["grids"])
+    res = {"split": {height: ctx.split(t.shape[1]) for height, t in x.items()},
+           "start": {height: ctx.start(t.shape[1]) for height, t in x.items()}}
+    outs = {}
+    with row_sharded(ctx):
+        outs["conv"] = (spec["conv_in"], conv(x[spec["conv_in"]]))
+        outs["halo3"] = (deep, halo_rows(x[deep], 3, ctx))
+        for lo, hi in zip(spec["resizes"], spec["resizes"][1:]):
+            outs[f"resize_{lo}_{hi}"] = (lo, resize_bilinear(x[lo], local_size((hi, hi))))
+        src = x[spec["conv_in"]]
+        with mock.patch.object(layers, "draw_seed", lambda gen: spec["seed"]):
+            res["mask_rows"] = layers.fast_dropout(torch.ones_like(src), 0.5, True, None) != 0
+            res["mask_tokens"] = layers.fast_dropout(
+                torch.ones_like(src).flatten(1, 2), 0.5, True, None) != 0
+    for name, (height, out) in outs.items():
+        (dx,) = torch.autograd.grad((out * cot[name]).sum(), x[height])
         res[name] = out.detach()
         res[f"d_{name}"] = dx
     save(rank, out_dir, res)
