@@ -4,13 +4,14 @@ Parameters are fp32; each layer casts them and its input to its compute
 ``dtype`` (fp32 or bf16), as the flax modules' ``dtype`` does.
 
 Dropout, DropPath and Dropout2d are identity in eval mode. In train mode each
-call draws one uint32 seed from an explicit CPU ``torch.Generator`` (``gen``)
-and hashes its mask's element counters on the input's device (SplitMix32, the
-JAX package's ``fast_uniform``): no mask crosses from host to device, and one
-seed gives the same masks on the CPU and on a card. JAX's threefry stream
-itself cannot be matched. Under data parallelism a rank hashes the global
-counters of its rows (``parallel.mesh.current_shard().row0`` rows in), so
-its masks are its rows of the unsharded batch's.
+call is the span ``mdvit.dropout`` (``utils.spans``), draws one uint32 seed
+from an explicit CPU ``torch.Generator`` (``gen``) and hashes its mask's
+element counters on the input's device (SplitMix32, the JAX package's
+``fast_uniform``): no mask crosses from host to device, and one seed gives
+the same masks on the CPU and on a card. JAX's threefry stream itself cannot
+be matched. Under data parallelism a rank hashes the global counters of its
+rows (``parallel.mesh.current_shard().row0`` rows in), so its masks are its
+rows of the unsharded batch's.
 
 Under context parallelism (``parallel.mesh.current_context()``) an element
 mask (``fast_dropout``) of a tensor whose axis 1 (or the caller's
@@ -34,6 +35,7 @@ from torch import nn
 
 from mdvit_tpu_torch.ops.norm import NormSpec, make_bn
 from mdvit_tpu_torch.parallel.mesh import current_context, current_shard, halo_rows
+from mdvit_tpu_torch.utils.spans import span
 
 # Minimax fit of (b, a) in 0.5·x·(1+tanh(b(x+ax³))) to the exact erf GELU
 # x·Φ(x) over [0, 10] (the JAX package's bf16 GELU); max |err| 2.7e-4.
@@ -153,13 +155,21 @@ def _keep_mask(keep: float, shape, gen, like: torch.Tensor,
     return fast_uniform(seed, shape, device=like.device, first=first) < keep
 
 
+def _dropped(x: torch.Tensor, rate: float, shape, gen, rows: int | None = None
+             ) -> torch.Tensor:
+    """``x`` with a Bernoulli(1 − rate) mask of ``shape`` (broadcast to x)
+    applied and the kept values scaled by 1 / (1 − rate)."""
+    keep = 1.0 - rate
+    with span("mdvit.dropout"):
+        mask = _keep_mask(keep, shape, gen, x, rows)
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 def drop_path(x: torch.Tensor, rate: float, train: bool, gen) -> torch.Tensor:
     """Stochastic depth (``layers.py:DropPath``): one keep draw per sample."""
     if rate == 0.0 or not train:
         return x
-    keep = 1.0 - rate
-    mask = _keep_mask(keep, (x.shape[0],) + (1,) * (x.dim() - 1), gen, x)
-    return torch.where(mask, x / keep, torch.zeros_like(x))
+    return _dropped(x, rate, (x.shape[0],) + (1,) * (x.dim() - 1), gen)
 
 
 def dropout2d(x: torch.Tensor, rate: float, train: bool, gen) -> torch.Tensor:
@@ -167,10 +177,7 @@ def dropout2d(x: torch.Tensor, rate: float, train: bool, gen) -> torch.Tensor:
     per sample."""
     if rate == 0.0 or not train:
         return x
-    keep = 1.0 - rate
-    mask = _keep_mask(keep, (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],),
-                      gen, x)
-    return torch.where(mask, x / keep, torch.zeros_like(x))
+    return _dropped(x, rate, (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],), gen)
 
 
 def fast_dropout(x: torch.Tensor, rate: float, train: bool, gen, row_axis: int = 1
@@ -181,9 +188,7 @@ def fast_dropout(x: torch.Tensor, rate: float, train: bool, gen, row_axis: int =
     a grid's rows where two axes (W, C) follow it, else row-major tokens."""
     if rate == 0.0 or not train:
         return x
-    keep = 1.0 - rate
-    mask = _keep_mask(keep, x.shape, gen, x, rows=row_axis if x.dim() >= 3 else None)
-    return torch.where(mask, x / keep, torch.zeros_like(x))
+    return _dropped(x, rate, x.shape, gen, rows=row_axis if x.dim() >= 3 else None)
 
 
 _CONSTANTS: dict = {}

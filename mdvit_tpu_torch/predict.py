@@ -29,6 +29,7 @@ import torch
 from mdvit_tpu_torch.data.preprocess import normalize, resize_bilinear_np
 from mdvit_tpu_torch.device import deterministic, no_tf32
 from mdvit_tpu_torch.models.base import split_seg
+from mdvit_tpu_torch.utils.spans import span
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".npy")
 
@@ -94,14 +95,17 @@ class Serving(torch.nn.Module):
 def make_forward(model: torch.nn.Module) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
     """``Serving(model)`` as a function, as ``scripts/predict.py:make_forward``.
     Runs without autograd, with TF32 off (``no_tf32``) and deterministic
-    (``deterministic``), whatever the caller's flags say."""
+    (``deterministic``), whatever the caller's flags say; a call is the span
+    ``mdvit.serve`` (``utils.spans``), outside ``Serving``, which
+    ``torch.export`` traces."""
     serve = Serving(model)
 
     @torch.no_grad()
     @no_tf32()
     @deterministic()
     def forward(x: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
-        return serve(x, onehot)
+        with span("mdvit.serve"):
+            return serve(x, onehot)
 
     return forward
 

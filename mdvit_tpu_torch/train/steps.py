@@ -34,6 +34,10 @@ its state at forward entry, and is left where the recompute found it) and
 writes no BatchNorm running stats (``norm.running_stats_frozen``), so the
 step's numbers, running stats and generator state are the plain step's.
 
+While a profiler records, the train step is the span ``mdvit.train_step``
+around ``mdvit.data``, ``mdvit.forward``, one ``mdvit.backward`` a pull and
+``mdvit.optimizer`` (``utils.spans``).
+
 The eval step (``make_eval_step``) returns masked overlap counts and a
 masked fp32 loss of a padded batch. Neither step reads a device value on
 the host. Both run under ``device.deterministic``: two calls from one state
@@ -72,6 +76,7 @@ from mdvit_tpu_torch.ops.norm import running_stats_frozen
 from mdvit_tpu_torch.parallel.mesh import Shard, all_reduce_sum, current_shard, sharded
 from mdvit_tpu_torch.train.losses import (bce_terms, dice_loss_from_sums, structure_terms,
                                           structure_weights)
+from mdvit_tpu_torch.utils.spans import span
 
 
 def _dice_iou(inter, sum_pred, sum_true):
@@ -203,8 +208,9 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     aug_gen = torch.Generator(device=params[0].device).manual_seed(seed)
 
     def grads_of(loss, wrt, retain=False):
-        return torch.autograd.grad(loss, wrt, retain_graph=retain,
-                                   allow_unused=True, materialize_grads=True)
+        with span("mdvit.backward"):
+            return torch.autograd.grad(loss, wrt, retain_graph=retain,
+                                       allow_unused=True, materialize_grads=True)
 
     size = _rank_and_size(group)[1]
 
@@ -212,23 +218,25 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         """The forward on this rank's rows, the losses and the backward pulls:
         (metrics, gradients)."""
         rows = (shard.row0, shard.total // size)
-        x_raw, m_raw, onehot = gather_batch(images, masks, indices, rows)
-        if device_augment:
-            x, y = augment_batch(aug_gen, x_raw, m_raw)
-        else:
-            x, y = eval_transform(x_raw, m_raw)
+        with span("mdvit.data"):
+            x_raw, m_raw, onehot = gather_batch(images, masks, indices, rows)
+            if device_augment:
+                x, y = augment_batch(aug_gen, x_raw, m_raw)
+            else:
+                x, y = eval_transform(x_raw, m_raw)
 
         def forward(x, onehot):
             return model(x, onehot, train=True, aux_mode="grouped" if mkd else "none",
                          gen=gen)
 
-        if remat:
-            entry = gen.get_state()
-            out = checkpoint(forward, x, onehot, use_reentrant=False,
-                             context_fn=lambda: (contextlib.nullcontext(),
-                                                 _Recompute(gen, entry)))
-        else:
-            out = forward(x, onehot)
+        with span("mdvit.forward"):
+            if remat:
+                entry = gen.get_state()
+                out = checkpoint(forward, x, onehot, use_reentrant=False,
+                                 context_fn=lambda: (contextlib.nullcontext(),
+                                                     _Recompute(gen, entry)))
+            else:
+                out = forward(x, onehot)
         if isinstance(out["seg"], tuple) and len(out["seg"]) == 3:
             # TransFuse's deep supervision: one objective, one pull, no MKD
             loss_d, dice_d, iou_d = deep_supervision_losses(out["seg"], y, num_domains)
@@ -261,19 +269,21 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     @deterministic()
     def step(images: Sequence[torch.Tensor], masks: Sequence[torch.Tensor],
              indices: torch.Tensor) -> dict[str, torch.Tensor]:
-        shard = _shard_of(group, indices.numel())
-        with sharded(shard):
-            metrics, grads = pulls(images, masks, indices, shard)
-        if group is not None:
-            flat = torch.cat([g.reshape(-1) for g in grads])
-            dist.all_reduce(flat, group=group)
-            grads = [part.view_as(g) for part, g in
-                     zip(flat.div_(size).split([g.numel() for g in grads]), grads)]
-        for p, g in zip(params, grads):
-            p.grad = g
-        optimizer.step()
-        scheduler.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        with span("mdvit.train_step"):
+            shard = _shard_of(group, indices.numel())
+            with sharded(shard):
+                metrics, grads = pulls(images, masks, indices, shard)
+            with span("mdvit.optimizer"):
+                if group is not None:
+                    flat = torch.cat([g.reshape(-1) for g in grads])
+                    dist.all_reduce(flat, group=group)
+                    grads = [part.view_as(g) for part, g in
+                             zip(flat.div_(size).split([g.numel() for g in grads]), grads)]
+                for p, g in zip(params, grads):
+                    p.grad = g
+                optimizer.step()
+                scheduler.step()
+            return {k: v.detach() for k, v in metrics.items()}
 
     step.generator, step.aug_generator = gen, aug_gen
     return step
