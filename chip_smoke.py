@@ -27,6 +27,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
             library yardstick of CPE/CRPE is cuDNN's backward of their
             ``F.conv2d(groups=C)`` forms (``aten.convolution_backward``);
             A′, B′, C′ at the classifiers' shapes as A, B, C in phase 2;
+   dropout  kernel D (``mdvit::dropout``) at every call of phase 6's fp32
+            train step (shapes and counter layouts read from one step) and
+            at the benchmark step's two largest shapes, fp32 and bf16:
+            bit-equal to the torch formula on the card, device ms of both
+            beside the bound;
    split    A's device launches per call at B=16 and B=1, and A′'s, B′'s and
             C′'s at B=16 (2 each: A's and A′'s partials and apply kernels;
             B′'s and C′'s fused tile kernel and reduce), and device ms per
@@ -221,6 +226,7 @@ import functools
 import io
 import itertools
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -247,7 +253,7 @@ from mdvit_tpu_torch.models import coat, mpvit
 from mdvit_tpu_torch.models.base import FATEncoderDecoder, split_seg
 from mdvit_tpu_torch.models.blocks import MHSAStage
 from mdvit_tpu_torch.models.registry import build_mdvit, build_model
-from mdvit_tpu_torch.ops import dwconv, kernels
+from mdvit_tpu_torch.ops import dwconv, kernels, layers
 from mdvit_tpu_torch.ops import factorized_attention as fa
 from mdvit_tpu_torch.ops.layers import fast_normal, fast_uniform
 from mdvit_tpu_torch.ops.norm import DomainBatchNorm, running_stats_frozen
@@ -301,6 +307,15 @@ BWD_WEIGHT_REL_TOL = 1e-4
 # first domain gate: 3 times at stage 0.
 FWD_CALLS = (4, 4, 4, 4)
 BWD_CALLS = (7, 8, 8, 8)
+# kernel D (``mdvit::dropout``) in that step, dropout and stochastic depth
+# 0.1: 84 calls in the forward and 168 in the backwards of its two pulls
+DROPOUT_CALLS = (84, 168)
+# D's two largest calls in the benchmark's 64-image step, as (images,
+# tokens, channels): the MLP's hidden layer at stages 0 and 1
+DROPOUT_SHAPES = ((64, 4096, 512), (64, 1024, 1024))
+# bytes of inputs D's timing cycles through, past the card's 50 MB L2
+L2_BYTES = 50 * 2 ** 20
+DROPOUT_TIMED_BYTES = 256 * 2 ** 20
 FORWARD = ("factorized_attention", "cpe_conv", "crpe_conv")
 BACKWARD = ("factorized_attention_bwd", "cpe_conv_bwd", "crpe_conv_bwd")
 REPLACES = {
@@ -995,6 +1010,77 @@ def phase_backward(seed: int) -> dict:
     return summary
 
 
+def phase_dropout(seed: int) -> dict:
+    """Kernel D (``mdvit::dropout``) at every call of phase 6's fp32 train
+    step (D·B = 16, 256²: each call's x shape and counter layout as one step
+    made them, read with ``layers._dropout_cuda`` wrapped) and at
+    ``DROPOUT_SHAPES`` (element masks), in fp32 and bf16: bit-equal to its
+    plain version (``layers.dropout_ref``, the torch formula, on the card),
+    and device ms of both beside the bound (x read once, y written once).
+    Returns D's summary, the per-step sums over phase 6's calls."""
+    model, step, _ = _train_setup(torch.float32, seed)
+    images, masks = _stores(seed)
+    calls: dict = {}  # (shape, keep, row, stride, period) -> [calls, a key]
+    real = layers._dropout_cuda
+
+    def record(x, keep, key, row, stride, period):
+        calls.setdefault((tuple(x.shape), keep, row, stride, period), [0, key])[0] += 1
+        return real(x, keep, key, row, stride, period)
+
+    with mock.patch.object(layers, "_dropout_cuda", record):
+        step(images, masks, torch.arange(TRAIN_B).repeat(TRAIN_D, 1).cuda())
+    torch.cuda.synchronize()
+    del model, step, images, masks
+    torch.cuda.empty_cache()
+    n_calls = sum(n for n, _ in calls.values())
+    if n_calls != sum(DROPOUT_CALLS):
+        raise RuntimeError(f"train step made {n_calls} dropout calls, want {sum(DROPOUT_CALLS)}")
+    cases = [(layout, n, key) for layout, (n, key) in calls.items()]
+    for shape in DROPOUT_SHAPES:
+        row = math.prod(shape[1:])
+        cases.append(((shape, 0.9, row, row, row), None, 0x2545F491))
+    summary = _summary(["dropout"])["dropout"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    failures = []
+    for (shape, keep, row, stride, period), n, key in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            # copies of x past the L2 for the timed calls to cycle through:
+            # where the graph's 20 calls cannot hold them, each reads x from
+            # memory; smaller calls stay in the L2 (``in_l2``), as in the step
+            x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+            xs = [x] + [x.clone() for _ in range(DROPOUT_TIMED_BYTES // (
+                x.numel() * x.element_size()))]
+            args = (keep, key, row, stride, period)
+            cycle = itertools.cycle(xs)
+            run = lambda: layers._dropout_cuda(next(cycle), *args)
+            plain = lambda: layers.dropout_ref(next(cycle), *args)
+            got, want = layers._dropout_cuda(x, *args), layers.dropout_ref(x, *args)
+            bit_equal = _same_bits(got, want)
+            err = (got.float() - want.float()).abs().max().item()
+            del got, want
+            with torch.no_grad():
+                ms, plain_ms = device_ms(run), device_ms(plain)
+            item = x.element_size()
+            n_bytes = 2 * x.numel() * item
+            b_ms, b_by = bound_ms(n_bytes, x.numel())
+            rec = {"phase": "kernel", "kernel": "dropout", "shape": list(shape), "keep": keep,
+                   "row": row, "stride": stride, "period": period,
+                   "calls_per_step": n, "dtype": str(dtype).replace("torch.", ""),
+                   "bit_equal": bit_equal, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+                   "roofline_share": b_ms / ms, "in_l2": 20 * n_bytes // 2 < L2_BYTES}
+            emit(rec)
+            if not bit_equal:
+                failures.append(rec)
+            if n is not None:
+                _add(summary, rec, n)
+            del x, xs, cycle
+    summary["calls"] = n_calls
+    if failures:
+        raise RuntimeError(f"{len(failures)} dropout kernel check(s) not bit-equal")
+    return summary
+
+
 def phase_split(seed: int) -> None:
     """A's launches per call at B=16 and B=1, A′'s, B′'s and C′'s at B=16, and
     device ms per launch at each stage shape; fails unless every call is
@@ -1075,13 +1161,15 @@ def split(seed: int, reps: int = 10) -> list:
 @contextlib.contextmanager
 def plain_versions(forward: bool = True):
     """Route the model's kernel calls to their plain PyTorch versions: the
-    backwards always, the forwards too unless ``forward`` is False. The ops'
-    CUDA implementations call the plain versions (the ops' CPU
-    implementations, which run on any device's tensors) in place of their
-    launches; the ops and their autograd stay the same."""
+    backwards and dropout (kernel D, its own backward) always, the forwards
+    too unless ``forward`` is False. The ops' CUDA implementations call the
+    plain versions (the ops' CPU implementations, which run on any device's
+    tensors) in place of their launches; the ops and their autograd stay
+    the same."""
     patches = [(fa, "_backward", fa._attention_bwd_cpu),
                (dwconv, "_cpe_backward", dwconv._cpe_bwd_cpu),
-               (dwconv, "_crpe_backward", dwconv._crpe_bwd_cpu)]
+               (dwconv, "_crpe_backward", dwconv._crpe_bwd_cpu),
+               (layers, "_dropout_cuda", layers.dropout_ref)]
     if forward:
         patches += [(fa, "_forward", fa._attention_cpu),
                     (dwconv, "_cpe_forward", dwconv._cpe_cpu),
@@ -1176,7 +1264,7 @@ def phase_model(seed: int) -> dict:
     kernels.reset_launches()
     probs = forward(images, onehot)
     torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
+    launches = _launches()
     emit({"phase": "model", "B": BATCH, "img": IMG, "launches": launches})
     # 8 encoder + 8 decoder serial blocks, one call each; no backward
     expected = {name: 16 if name in FORWARD else 0 for name in launches}
@@ -1194,7 +1282,7 @@ def phase_model(seed: int) -> dict:
             kernels.reset_launches()
             plain = model(x, onehot, out_feat=True)
             torch.cuda.synchronize()
-            plain_launches = dict(kernels.LAUNCHES)
+            plain_launches = _launches()
     logits = out["seg"][0]
     if tuple(logits.shape) != (BATCH, IMG, IMG, 1) or out["seg"][1] is not None:
         raise RuntimeError(f"unexpected output shape {tuple(logits.shape)}")
@@ -1393,9 +1481,10 @@ def phase_train(seed: int, augment: dict) -> dict:
     kernels.reset_launches()
     metrics = step(images, masks, indices)
     torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
+    launches = _launches()
     expected = {name: sum(FWD_CALLS) if name in FORWARD else sum(BWD_CALLS)
-                for name in launches}
+                for name in FORWARD + BACKWARD}
+    expected["dropout"] = sum(DROPOUT_CALLS)
     emit({"phase": "train", "D": TRAIN_D, "B": TRAIN_B, "img": IMG,
           "launches": launches, "expected": expected,
           "metrics": {k: v.tolist() for k, v in metrics.items()}})
@@ -1409,7 +1498,7 @@ def phase_train(seed: int, augment: dict) -> dict:
         kernels.reset_launches()
         plain_step(images, masks, indices)
         torch.cuda.synchronize()
-        plain_launches = dict(kernels.LAUNCHES)
+        plain_launches = _launches()
     check = _grad_check(model, plain_model)
     emit({"phase": "train_vs_plain_backward", **check, "launches": plain_launches})
     want = {name: sum(FWD_CALLS) if name in FORWARD else 0 for name in plain_launches}
@@ -1427,7 +1516,7 @@ def phase_train(seed: int, augment: dict) -> dict:
         kernels.reset_launches()
         plain_metrics = all_step(images, masks, indices)
         torch.cuda.synchronize()
-        all_launches = dict(kernels.LAUNCHES)
+        all_launches = _launches()
     whole = _grad_check(model, all_model)
     loss_rel = {k: ((metrics[k] - plain_metrics[k]).abs().max()
                     / plain_metrics[k].abs().max().clamp(min=1e-30)).item()
@@ -1556,7 +1645,7 @@ def phase_trainer(seed: int) -> dict:
         first.fit()
         torch.cuda.synchronize()
         fit_seconds = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
+        launches = _launches()
         peak = torch.cuda.max_memory_allocated()
         writes = {name: dict(v) for name, v in first.writer.stats.items()}
         second = Trainer(_trainer_config(seed, TRAINER_EPOCHS + 1), str(TRAINER_DIR))
@@ -1568,10 +1657,12 @@ def phase_trainer(seed: int) -> dict:
         rows = second.test()
     with open(TRAINER_DIR / "test_results.csv", newline="") as f:
         csv_rows = list(csv.DictReader(f))
-    # each train step runs every forward kernel once a block (16 blocks) and
-    # every backward kernel at BWD_CALLS; each eval batch the forwards once a block
+    # each train step runs every forward kernel once a block (16 blocks),
+    # every backward kernel at BWD_CALLS and D at DROPOUT_CALLS; each eval
+    # batch the forwards once a block
     expected = {name: (steps + eval_batches) * 16 if name in FORWARD
-                else steps * sum(BWD_CALLS) for name in launches}
+                else steps * sum(BWD_CALLS) for name in FORWARD + BACKWARD}
+    expected["dropout"] = steps * sum(DROPOUT_CALLS)
     rec = {"phase": "trainer", "D": TRAIN_D, "B": TRAIN_B, "img": IMG,
            "dtype": str(cfg.tpu.compute_dtype), "sizes": list(TRAINER_SIZES),
            "steps_per_epoch": second.steps_per_epoch,
@@ -1617,6 +1708,17 @@ def _losses(metrics: dict) -> dict:
     return {k: metrics[k].item() for k in ("loss", "aux_loss", "kt_loss") if k in metrics}
 
 
+def _launches() -> dict:
+    """Every kernel's launch count: the six model kernels' and D's."""
+    return dict(kernels.LAUNCHES)
+
+
+def _model_kernels(launches: dict) -> dict:
+    """The six model kernels' counts of ``launches``, which the blocks
+    predict; D's follow the dropout sites."""
+    return {k: launches[k] for k in FORWARD + BACKWARD}
+
+
 def _split_launches(launches: dict) -> tuple[dict, dict]:
     return ({k: v for k, v in launches.items() if k in FORWARD},
             {k: v for k, v in launches.items() if k in BACKWARD})
@@ -1655,7 +1757,8 @@ def family_row(row: str, seed: int, batch_data) -> dict:
     kernels.reset_launches()
     probs = forward(images, onehot)
     torch.cuda.synchronize()
-    serve_fwd, serve_bwd = _split_launches(dict(kernels.LAUNCHES))
+    serve_launches = _launches()
+    serve_fwd, serve_bwd = _split_launches(serve_launches)
     with torch.no_grad():
         logits = split_seg(model(x, onehot)["seg"])[0]
         with plain_versions():
@@ -1674,13 +1777,14 @@ def family_row(row: str, seed: int, batch_data) -> dict:
     kernels.reset_launches()
     metrics = step(*batch_data)
     torch.cuda.synchronize()
-    step_fwd, step_bwd = _split_launches(dict(kernels.LAUNCHES))
+    step_launches = _launches()
+    step_fwd, step_bwd = _split_launches(step_launches)
     plain_step = _family_step(plain_model, seed)
     with plain_versions():
         kernels.reset_launches()
         plain_step(*batch_data)
         torch.cuda.synchronize()
-        plain_launches = sum(kernels.LAUNCHES.values())
+        plain_launches = sum(_launches().values())
     grad_l2 = _grad_l2_rel(model, plain_model)
     del plain_model, plain_step
     lap("step_check")
@@ -1719,6 +1823,8 @@ def family_row(row: str, seed: int, batch_data) -> dict:
             "serving_launches": serve_fwd, "serving_backward_launches": serve_bwd,
             "logit_scale": scale, "logit_rel_err": logit_rel, "tol_rel": MODEL_REL_TOL,
             "probs_ok": probs_ok, "step_launches": {**step_fwd, **step_bwd},
+            "serving_dropout_launches": serve_launches["dropout"],
+            "step_dropout_launches": step_launches["dropout"],
             "predicted_step_launches": {"forward": fwd_pred, "backward": bwd_pred},
             "plain_step_launches": plain_launches,
             "grad_l2_rel_err": grad_l2, "grad_l2_tol": GRAD_L2_TOL, "losses": losses,
@@ -1740,6 +1846,7 @@ def phase_family(seed: int) -> list:
         fwd, bwd = rec["serving_launches"], rec["step_launches"]
         if not (all(fwd[k] > 0 for k in FORWARD) and not any(rec["serving_backward_launches"].values())
                 and all(bwd[k] > 0 for k in FORWARD + BACKWARD)
+                and rec["serving_dropout_launches"] == 0 and rec["step_dropout_launches"] > 0
                 and rec["plain_step_launches"] == 0 and rec["probs_ok"] and rec["finite"]
                 and rec["logit_rel_err"] <= MODEL_REL_TOL
                 and rec["grad_l2_rel_err"] <= GRAD_L2_TOL):
@@ -1773,7 +1880,7 @@ def phase_family_cli(seed: int) -> list:
             kernels.reset_launches()
             tr.fit()
             torch.cuda.synchronize()
-            launches = dict(kernels.LAUNCHES)
+            launches = _launches()
             rows = tr.test()
             history = list(tr.history)
             del tr
@@ -1838,7 +1945,7 @@ def phase_export(seed: int) -> dict:
             kernels.reset_launches()
             got = export.run(program, images, onehot)
             torch.cuda.synchronize()
-            launches = dict(kernels.LAUNCHES)
+            launches = _launches()
             live = make_forward(model)
             want = live(images, onehot)
             served = _time_calls(lambda: export.run(program, images, onehot), BATCH,
@@ -1905,7 +2012,7 @@ def remat_row(row: str, seed: int, batch_data) -> dict:
         kernels.reset_launches()
         metrics = step(*batch_data)
         torch.cuda.synchronize()
-        launches = dict(kernels.LAUNCHES)
+        launches = _launches()
         res = {"metrics": metrics, "launches": launches,
                "update": [p.detach() - b for p, b in zip(params, before)],
                "grads": [p.grad.detach().clone() for p in params],
@@ -1949,9 +2056,13 @@ def remat_row(row: str, seed: int, batch_data) -> dict:
            "launches": {k: r["launches"] for k, r in out.items()},
            "predicted_launches": {"forward": fwd_pred, "backward": bwd_pred},
            "speed": {k: out[k]["speed"] for k in ("plain", "remat")}}
+    # D: every call of the plain step, and again where the replays redo a forward
     rec["launches_as_predicted"] = (
-        remat["launches"] == {k: fwd_pred if k in FORWARD else bwd_pred for k in FORWARD + BACKWARD}
-        and plain["launches"] == {k: 16 if k in FORWARD else bwd_pred for k in FORWARD + BACKWARD})
+        _model_kernels(remat["launches"])
+        == {k: fwd_pred if k in FORWARD else bwd_pred for k in FORWARD + BACKWARD}
+        and _model_kernels(plain["launches"])
+        == {k: 16 if k in FORWARD else bwd_pred for k in FORWARD + BACKWARD}
+        and remat["launches"]["dropout"] >= plain["launches"]["dropout"] > 0)
     return rec
 
 
@@ -2190,7 +2301,7 @@ def _dp_run(seed: int, group) -> dict:
     batch = (images, masks, torch.arange(TRAIN_B).repeat(TRAIN_D, 1).cuda())
     kernels.reset_launches()
     res = _step_result(model, step, batch)
-    res["launches"] = dict(kernels.LAUNCHES)
+    res["launches"] = _launches()
     res = ckpt.to_host(res)
     lat = []
     for _ in range(DP_TIMED):
@@ -2252,6 +2363,7 @@ def phase_dp(seed: int, world: int = DP_WORLD, backend: str = "gloo") -> dict:
     ranks = [torch.load(DP_DIR / f"rank{r}.pt", weights_only=False) for r in range(world)]
     r0 = ranks[0]
     expected = {k: 16 if k in FORWARD else 31 for k in FORWARD + BACKWARD}
+    expected["dropout"] = sum(DROPOUT_CALLS)
     rec = {"phase": "dp", "world": world, "backend": backend, "D": TRAIN_D, "B": TRAIN_B,
            "img": IMG, "rows_per_rank": TRAIN_D * TRAIN_B // world, "optimizer": "sgd",
            "augment": True, "drop": 0.1, "group_of_one_nccl": group_of_one,
@@ -2275,7 +2387,8 @@ def phase_dp(seed: int, world: int = DP_WORLD, backend: str = "gloo") -> dict:
             and rec["loss_rel_err"] <= DP_REL_TOL and rec["bn_stats_rel_err"] <= DP_REL_TOL
             and rec["grad_l2_rel"] <= GRAD_L2_TOL and rec["update_l2_rel"] <= GRAD_L2_TOL
             and rec["replicas_bit_equal"]
-            and all(r["launches"] == expected for r in ranks)):
+            and all(_model_kernels(r["launches"]) == _model_kernels(expected)
+                    and r["launches"]["dropout"] > 0 for r in ranks)):
         raise RuntimeError(f"dp phase failed: {json.dumps(rec)[:2000]}")
     return r0["launches"]
 
@@ -2639,7 +2752,7 @@ def _cp_run(seed: int, group, stage: bool = True, batch: int = CP_B, img: int = 
         out = (stage_apply_context_parallel(st, x, (64, 64), group, dom) if group is not None
                else st(x, (64, 64), dom))
         grads = torch.autograd.grad((out * g).sum(), list(st.parameters()))
-        res["stage_launches"] = dict(kernels.LAUNCHES)
+        res["stage_launches"] = _launches()
         if group is not None:
             flat = torch.cat([t.reshape(-1) for t in grads])
             torch.distributed.all_reduce(flat, group=group)
@@ -2660,7 +2773,7 @@ def _cp_run(seed: int, group, stage: bool = True, batch: int = CP_B, img: int = 
     kernels.reset_launches()
     loss = step(x, y, dom, torch.Generator().manual_seed(seed + 64))
     torch.cuda.synchronize()
-    res["launches"] = dict(kernels.LAUNCHES)
+    res["launches"] = _launches()
     res["loss"] = loss.cpu()
     res["grads"] = [p.grad.detach().cpu() for p in model.parameters()]
     res["stats"] = [b.detach().cpu() for n, b in model.named_buffers() if "running" in n]
@@ -2768,11 +2881,11 @@ def _cp_ok(rec: dict, stage: bool) -> bool:
           and rec["loss_rel_err"] <= CP_LOSS_RTOL
           and rec["bn_stats_rel_err"] <= CP_BN_TOL and rec["grad_l2_rel"] <= GRAD_L2_TOL
           and rec["replicas_bit_equal"]
-          and all(n == per_block for n in rec["launches_per_rank"]))
+          and all(_model_kernels(n) == per_block for n in rec["launches_per_rank"]))
     if stage:
         ok = ok and (rec["stage_out_rel_err"] <= CP_STAGE_TOL
                      and rec["stage_grad_rel_err"] <= CP_STAGE_GRAD_TOL
-                     and all(n == {k: 2 for k in FORWARD + BACKWARD}
+                     and all(_model_kernels(n) == {k: 2 for k in FORWARD + BACKWARD}
                              for n in rec["stage_launches_per_rank"]))
     return ok
 
@@ -2828,12 +2941,12 @@ def _cp_classifier(name: str, seed: int, group) -> dict:
     kernels.reset_launches()
     out = model_apply_context_parallel(model, x, None, group)
     torch.cuda.synchronize()
-    fwd = dict(kernels.LAUNCHES)
+    fwd = _launches()
     kernels.reset_launches()
     grads = torch.autograd.grad(F.cross_entropy(out["logits"], labels), list(model.parameters()),
                                 allow_unused=True, materialize_grads=True)
     torch.cuda.synchronize()
-    bwd = dict(kernels.LAUNCHES)
+    bwd = _launches()
     logits = out["logits"].detach().float().cpu()
     if group is None:
         torch.save({"state_dict": model.state_dict(), "logits": logits,
@@ -2863,7 +2976,7 @@ def _cp_deeplab(seed: int, group) -> dict:
     with torch.no_grad():
         logits = split_seg(model_apply_context_parallel(model, x, dom, group)["seg"])[0]
     torch.cuda.synchronize()
-    return {"launches": dict(kernels.LAUNCHES), "logits": logits.float().cpu()}
+    return {"launches": _launches(), "logits": logits.float().cpu()}
 
 
 def _cp_more_run(seed: int, group) -> dict:
@@ -2909,8 +3022,9 @@ def _cp_more_records(ranks: list, single: dict) -> list:
         bwd_want = {k: blocks if k in BACKWARD else 0 for k in FORWARD + BACKWARD}
         rec["ok"] = (rec["logits_err"] <= CP_FWD_TOL and rec["grad_l2_rel"] <= GRAD_L2_TOL
                      and one["finite"] and all(p["finite"] for p in per)
-                     and all(p["forward_launches"] == fwd_want for p in per)
-                     and all(p["backward_pull_launches"] == bwd_want for p in per))
+                     and all(_model_kernels(p["forward_launches"]) == fwd_want for p in per)
+                     and all(_model_kernels(p["backward_pull_launches"]) == bwd_want
+                             for p in per))
         recs.append(rec)
     one = single["deeplab"]
     scale = max(1.0, one["logits"].abs().max().item())
@@ -2949,7 +3063,7 @@ def _cp_zoo_one(name: str, seed: int, group) -> dict:
     kernels.reset_launches()
     out = forward()
     torch.cuda.synchronize()
-    res = {"forward_launches": dict(kernels.LAUNCHES),
+    res = {"forward_launches": _launches(),
            "maps": [m.float().cpu() for m in _maps(out)], "feat": out["feat"].float().cpu(),
            "split_stride": getattr(model, "row_split_stride", 32)}
     del out
@@ -2968,7 +3082,7 @@ def _cp_zoo_one(name: str, seed: int, group) -> dict:
     kernels.reset_launches()
     res["loss"] = step(x, y, dom, torch.Generator().manual_seed(seed + 68)).cpu()
     torch.cuda.synchronize()
-    res["step_launches"] = dict(kernels.LAUNCHES)
+    res["step_launches"] = _launches()
     res["grads"] = [p.grad.detach().cpu() for p in model.parameters()]
     res["stats"] = [b.detach().cpu() for n, b in model.named_buffers() if "running" in n]
     gen = torch.Generator().manual_seed(seed + 69)
@@ -3088,7 +3202,8 @@ def _cp_zoo_records(ranks: list, single: dict, part: str = "zoo") -> list:
             ok = ok and (rec["loss_rel_err"] <= CP_LOSS_RTOL
                          and rec["bn_stats_rel_err"] <= CP_BN_TOL
                          and rec["grad_fp64_l2_rel"] <= CP_FP64_GRAD_TOL)
-        rec["ok"] = ok and all(n == 0 for launch in launches for n in launch.values())
+        rec["ok"] = ok and all(n == 0 for launch in launches
+                               for n in _model_kernels(launch).values())
         recs.append(rec)
     return recs
 
@@ -3096,7 +3211,7 @@ def _cp_zoo_records(ranks: list, single: dict, part: str = "zoo") -> list:
 def _zoo_launches(ranks: list) -> dict:
     """Rank 0's port-kernel launches over the comparators' CP forwards and
     steps."""
-    total = dict.fromkeys(FORWARD + BACKWARD, 0)
+    total = dict.fromkeys(kernels.LAUNCHES, 0)
     for res in ranks[0].values():
         for key in ("forward_launches", "step_launches"):
             for k, v in res.get(key, {}).items():
@@ -3150,7 +3265,7 @@ def phase_cp(seed: int) -> dict:
     shutil.rmtree(CP_DIR, ignore_errors=True)
     if failed:
         raise RuntimeError(f"cp phase's uneven splits or comparators failed: {failed}")
-    cls = dict.fromkeys(FORWARD + BACKWARD, 0)
+    cls = dict.fromkeys(kernels.LAUNCHES, 0)
     for name in CP_CLASSIFIERS:
         for launches in (more[0]["classifiers"][name]["forward_launches"],
                          more[0]["classifiers"][name]["backward_pull_launches"]):
@@ -3211,7 +3326,7 @@ def _maps(out: dict) -> list:
 
 
 def _add_launches(total: dict) -> None:
-    for k, v in kernels.LAUNCHES.items():
+    for k, v in _launches().items():
         total[k] = total.get(k, 0) + v
 
 
@@ -3267,7 +3382,7 @@ def zoo_row(name: str, seed: int, batch_data, launches: dict) -> dict:
     kernels.reset_launches()
     probs = forward(images, onehot)
     torch.cuda.synchronize()
-    serve = dict(kernels.LAUNCHES)
+    serve = _launches()
     _add_launches(launches)
     probs_ok = (tuple(probs.shape) == (BATCH, IMG, IMG) and bool(torch.isfinite(probs).all()))
     serving = _time_calls(lambda: forward(images, onehot), BATCH, iters=5, warmup=2)
@@ -3386,7 +3501,7 @@ def _zoo_features(seed: int) -> dict:
                                    "--device", dev, "--out", str(ZOO_DIR / f"features_{dev}")])
         seconds[dev] = time.perf_counter() - t0
         if dev == "cuda":
-            card_launches = dict(kernels.LAUNCHES)
+            card_launches = _launches()
         outs[dev] = {n: dict(np.load(ZOO_DIR / f"features_{dev}" / f"features_{n}.npz"))
                      for n in ZOO_FEATURE_SETS}
     rel = max(np.abs(outs["cuda"][n]["features"] - outs["cpu"][n]["features"]).max()
@@ -3451,11 +3566,11 @@ def phase_zoo(seed: int) -> dict:
     if not (features["max_rel_err"] <= ZOO_FEATURE_TOL and features["ids_equal"]
             and all(v > 0 for k, v in features["card_launches"].items() if k in FORWARD)):
         failures.append("extract_features")
-    if any(launches.values()):
+    if any(_model_kernels(launches).values()):
         failures.append(f"launches {launches}")
     if failures:
         raise RuntimeError(f"zoo phase failed: {failures}")
-    return {k: launches.get(k, 0) for k in FORWARD + BACKWARD}
+    return launches
 
 
 # ----------------------------------------------------------------- phase 15
@@ -3493,12 +3608,12 @@ def classifier_row(name: str, seed: int, x, labels, shape_records: list) -> dict
     with torch.no_grad():
         out = model(x)
     torch.cuda.synchronize()
-    fwd = dict(kernels.LAUNCHES)
+    fwd = _launches()
     with torch.no_grad(), plain_versions():
         kernels.reset_launches()
         want = model(x)
         torch.cuda.synchronize()
-        plain_launches = sum(kernels.LAUNCHES.values())
+        plain_launches = sum(_launches().values())
     scale = max(1.0, want["logits"].abs().max().item())
     logit_err = (out["logits"] - want["logits"]).abs().max().item() / scale
     feat_err = ((out["feat"] - want["feat"]).abs().max().item()
@@ -3512,7 +3627,7 @@ def classifier_row(name: str, seed: int, x, labels, shape_records: list) -> dict
     kernels.reset_launches()
     F.cross_entropy(model(x)["logits"], labels).backward()
     torch.cuda.synchronize()
-    bwd = dict(kernels.LAUNCHES)
+    bwd = _launches()
     grads = [p.grad for p in model.parameters()]
     model.zero_grad(set_to_none=True)
     with plain_versions():
@@ -3567,7 +3682,7 @@ def phase_classifiers(seed: int, summary: dict) -> dict:
     forwards and backward pulls, the phase's main path."""
     x, labels = _cls_input(seed)
     records = summary["classifier_shapes"] + summary["classifier_bwd_shapes"]
-    total = dict.fromkeys(FORWARD + BACKWARD, 0)
+    total = dict.fromkeys(kernels.LAUNCHES, 0)
     failures = []
     for name, blocks in CLASSIFIERS.items():
         if sum(classifier_attention_calls(name).values()) != blocks:
@@ -3578,7 +3693,8 @@ def phase_classifiers(seed: int, summary: dict) -> dict:
             for k in total:
                 total[k] += launches[k]
         if not (rec["forward_launches"] == {k: blocks if k in FORWARD else 0 for k in total}
-                and rec["backward_pull_launches"] == dict.fromkeys(total, blocks)
+                and _model_kernels(rec["backward_pull_launches"])
+                == dict.fromkeys(FORWARD + BACKWARD, blocks)
                 and rec["plain_launches"] == 0 and rec["finite"] and rec["bf16"]["finite"]
                 and rec["logits_shape"] == [BATCH, 1000]
                 and rec["logit_rel_err"] <= MODEL_REL_TOL
@@ -3640,6 +3756,7 @@ def main() -> int:
     with no_tf32():
         summary = timed("kernels", phase_kernels, args.seed)
         summary.update(timed("backward", phase_backward, args.seed))
+        summary["dropout"] = timed("dropout", phase_dropout, args.seed)
         timed("split", phase_split, args.seed)
         serving_launches = timed("model", phase_model, args.seed)
         augment = timed("augment", phase_augment, args.seed)
@@ -3675,6 +3792,17 @@ def main() -> int:
                                      "batches, bf16, D*B=16 at 256",
                      "launches_by_path": {path: n[name] for path, n in paths.items()},
                      "bf16": s["bfloat16"]})
+    s = summary["dropout"]
+    line.append({"name": "dropout", "route": "cuda", "source": "mdvit_tpu_torch/csrc/dropout.cu",
+                 "replaces": "none: XLA fuses mdvit_tpu/data/augment.py:fast_uniform into "
+                             "its consumer",
+                 "launches": trainer["launches"]["dropout"], "max_abs_err": s["max_abs_err"],
+                 **s["float32"], "bound_by": "bytes" if s["bound_by"] == {"bytes"} else "operations",
+                 "per": f"one fp32 train step, D*B=16 at 256 ({s['calls']} calls)",
+                 "launches_per": "Trainer.fit, 2 epochs of 8 steps and 8 eval "
+                                 "batches, bf16, D*B=16 at 256",
+                 "launches_by_path": {path: n.get("dropout") for path, n in paths.items()},
+                 "bf16": s["bfloat16"]})
     emit({"phase": "done", "seconds": time.perf_counter() - t0, "by_phase": seconds})
     print(smi, flush=True)
     emit({"kernels": line})

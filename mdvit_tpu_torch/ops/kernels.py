@@ -32,12 +32,14 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = {
     "factorized_attention": "factorized_attention.cu",
     "dwconv": "dwconv.cu",
+    "dropout": "dropout.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES = {"factorized_attention": 0, "cpe_conv": 0, "crpe_conv": 0,
-            "factorized_attention_bwd": 0, "cpe_conv_bwd": 0, "crpe_conv_bwd": 0}
+            "factorized_attention_bwd": 0, "cpe_conv_bwd": 0, "crpe_conv_bwd": 0,
+            "dropout": 0}
 
 # output rows of a tile of the tiled depthwise-conv kernels (``kTileH`` in dwconv.cu)
 TILE_H = 8
@@ -176,6 +178,10 @@ _ARGTYPES = {
     "mdvit_crpe_conv_bwd": (
         [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
         + [ctypes.c_longlong, ctypes.c_int] * 2 + [ctypes.c_int, ctypes.c_void_p]),
+    "mdvit_dropout": (
+        [ctypes.c_int] + [ctypes.c_void_p] * 2
+        + [ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_uint, ctypes.c_int]
+        + [ctypes.c_double, ctypes.c_int, ctypes.c_void_p]),
 }
 
 

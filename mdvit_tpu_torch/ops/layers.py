@@ -5,13 +5,19 @@ Parameters are fp32; each layer casts them and its input to its compute
 
 Dropout, DropPath and Dropout2d are identity in eval mode. In train mode each
 call is the span ``mdvit.dropout`` (``utils.spans``), draws one uint32 seed
-from an explicit CPU ``torch.Generator`` (``gen``) and hashes its mask's
-element counters on the input's device (SplitMix32, the JAX package's
-``fast_uniform``): no mask crosses from host to device, and one seed gives
-the same masks on the CPU and on a card. JAX's threefry stream itself cannot
-be matched. Under data parallelism a rank hashes the global counters of its
-rows (``parallel.mesh.current_shard().row0`` rows in), so its masks are its
-rows of the unsharded batch's.
+from an explicit CPU ``torch.Generator`` (``gen``) and applies the custom op
+``mdvit::dropout``, which hashes its mask's element counters (SplitMix32, the
+JAX package's ``fast_uniform``) as it reads x: no mask crosses from host to
+device, and one seed gives the same masks on the CPU and on a card. JAX's
+threefry stream itself cannot be matched. On a card the op is one pass of
+``csrc/dropout.cu`` (read x, write y); on the CPU it is ``dropout_ref``. Its
+backward is the same op on the gradient: the mask is recomputed, not saved.
+The op takes the counters as integers (``_counter_layout``): element e of x
+has ``key + (e // row)·stride + e % row % period``, which covers element,
+per-sample and per-channel masks and every shard below. Under data
+parallelism a rank hashes the global counters of its rows
+(``parallel.mesh.current_shard().row0`` rows in), so its masks are its rows
+of the unsharded batch's.
 
 Under context parallelism (``parallel.mesh.current_context()``) an element
 mask (``fast_dropout``) of a tensor whose axis 1 (or the caller's
@@ -29,10 +35,12 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
-from torch import nn
+from torch import Tensor, nn
 
+from mdvit_tpu_torch.ops import kernels
 from mdvit_tpu_torch.ops.norm import NormSpec, make_bn
 from mdvit_tpu_torch.parallel.mesh import current_context, current_shard, halo_rows
 from mdvit_tpu_torch.utils.spans import span
@@ -66,32 +74,33 @@ def _mul_u32(x: torch.Tensor, k: int) -> torch.Tensor:
     return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _U32
 
 
+def _splitmix32(x, mul):
+    """SplitMix32's finalizer (``mdvit_tpu/data/augment.py:_hash_u32``) on a
+    fresh tensor or array ``x`` of uint32 values, shifts and xors in place;
+    ``mul(x, k)`` is (x · k) mod 2³² in x's arithmetic."""
+    x ^= x >> 16
+    x = mul(x, 0x7FEB352D)
+    x ^= x >> 15
+    x = mul(x, 0x846CA68B)
+    x ^= x >> 16
+    return x
+
+
 def hash_u32(x: torch.Tensor) -> torch.Tensor:
-    """SplitMix32 finalizer (``mdvit_tpu/data/augment.py:_hash_u32``) on
-    uint32 values held in int64."""
-    x = x & _U32
-    x = x ^ (x >> 16)
-    x = _mul_u32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mul_u32(x, 0x846CA68B)
-    return x ^ (x >> 16)
+    """SplitMix32 finalizer on uint32 values held in int64."""
+    return _splitmix32(x & _U32, _mul_u32)
 
 
 def fast_uniform(seed: int | torch.Tensor, shape, device: torch.device | str = "cpu",
-                 offset: int = 0, first: int = 0,
-                 counters: torch.Tensor | None = None) -> torch.Tensor:
+                 offset: int = 0, first: int = 0) -> torch.Tensor:
     """U[0, 1) fp32 of ``shape`` from hashed row-major element counters,
     bit-equal to ``mdvit_tpu/data/augment.py:fast_uniform``. ``seed`` is a
-    host int (dropout) or a 0-d int64 tensor on ``device`` (the augmentation
-    noise, drawn on the device); ``offset`` picks an independent stream;
-    ``first`` is the first element's counter (a rank's slice of a larger
-    array); ``counters`` (int64, of ``shape``) replaces the row-major ones."""
-    if counters is not None:
-        idx = counters
-    else:
-        n = math.prod(int(s) for s in shape)
-        idx = torch.arange(first, first + n, dtype=torch.int64,
-                           device=device).reshape(tuple(shape))
+    host int or a 0-d int64 tensor on ``device`` (the augmentation noise,
+    drawn on the device); ``offset`` picks an independent stream; ``first``
+    is the first element's counter (a rank's slice of a larger array)."""
+    n = math.prod(int(s) for s in shape)
+    idx = torch.arange(first, first + n, dtype=torch.int64,
+                       device=device).reshape(tuple(shape))
     mix = (offset * 0x85EBCA6B) & _U32
     if isinstance(seed, torch.Tensor):
         base = _mul_u32(seed.to(torch.int64) & _U32, 0x9E3779B9)
@@ -119,50 +128,128 @@ def draw_seed(gen: torch.Generator | None) -> int:
     return int(torch.randint(0, 1 << 32, (), dtype=torch.int64, generator=gen))
 
 
-def _row_block_counters(shape, row0: int, ctx, device, axis: int = 1) -> torch.Tensor:
-    """Counters of a (B, ..., A, ...) block whose axis ``axis`` is this rank's
-    rows (a (B, H, W, C) grid's: two axes follow it) or row-major tokens (any
-    other layout) of an unsharded (total batch, ..., Σ ranks' A, ...) tensor:
-    sample row0 + b, that axis's index (the rank's first global row or
-    token) + a, the other axes as they are."""
-    shape = tuple(int(s) for s in shape)
-    b, a = shape[0], shape[axis]
-    pre, post = math.prod(shape[1:axis]), math.prod(shape[axis + 1:])
-    split = ctx.split(a, tokens=len(shape) - axis != 3)
-    start = sum(split[:ctx.index])
-    ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)  # noqa: E731
-    outer = (row0 + ar(b))[:, None] * pre + ar(pre)[None, :]  # (b, pre)
-    idx = (outer * (sum(split) * post))[:, :, None, None] \
-        + ((start + ar(a)) * post)[None, None, :, None] + ar(post)[None, None, None, :]
-    return idx.reshape(shape)
-
-
-def _keep_mask(keep: float, shape, gen, like: torch.Tensor,
-               rows: int | None = None) -> torch.Tensor:
-    """Bernoulli(keep) bools of ``shape`` (rows first), drawn on ``like``'s
-    device at the counters of the current shard's rows; ``rows``: the axis
-    that is row-sharded under context parallelism (module docstring), None
-    where none is."""
+def _counter_layout(shape, mask_shape, gen, rows: int | None) -> tuple:
+    """``mdvit::dropout``'s (key, row, stride, period) for x of ``shape`` and
+    a mask of ``mask_shape`` (rows first; broadcast to ``shape`` over all but
+    the sample, or all but the sample and channel), drawn at the counters of
+    the current shard's rows; ``rows``: the axis that is row-sharded under
+    context parallelism (module docstring), None where none is."""
     seed = draw_seed(gen)
     row0 = current_shard().row0
     ctx = current_context() if rows is not None else None
     if ctx is not None and ctx.mode == "e2e":
-        counters = _row_block_counters(shape, row0, ctx, like.device, rows)
-        return fast_uniform(seed, shape, device=like.device, counters=counters) < keep
+        # the unsharded (total batch, ..., Σ ranks' A, ...) tensor's counters:
+        # sample row0 + b, the axis's global index (the rank's first) + a
+        a = shape[rows]
+        pre, post = math.prod(shape[1:rows]), math.prod(shape[rows + 1:])
+        split = ctx.split(a, tokens=len(shape) - rows != 3)
+        stride = sum(split) * post
+        first = row0 * pre * stride + sum(split[:ctx.index]) * post
+        return _seed_key(seed, first), a * post, stride, a * post
     if ctx is not None:
         seed ^= (ctx.index * 0x9E3779B9) & _U32
-    first = row0 * math.prod(shape[1:])
-    return fast_uniform(seed, shape, device=like.device, first=first) < keep
+    period = math.prod(mask_shape[1:])
+    return _seed_key(seed, row0 * period), math.prod(shape[1:]), period, period
+
+
+def _seed_key(seed: int, first: int) -> int:
+    """The hash's base for ``seed`` (``fast_uniform``'s) plus the first
+    counter, mod 2³²."""
+    return ((int(seed) & _U32) * 0x9E3779B9 + first) & _U32
+
+
+def dropout_ref(x: Tensor, keep: float, key: int, row: int, stride: int,
+                period: int) -> Tensor:
+    """Plain version of ``mdvit::dropout``: x / keep where element e's
+    counter ``key + (e // row)·stride + e % row % period`` (mod 2³²) hashes
+    below keep (``fast_uniform``'s hash and compare), else 0. The mask is
+    hashed at its own shape (rows, 1, period) and broadcast over x as
+    (rows, row / period, period): on the CPU in numpy's uint32 arithmetic
+    (a third of ``hash_u32``'s CPU time), elsewhere by ``hash_u32`` on x's
+    device."""
+    n = x.numel()
+    if n == 0:
+        return torch.empty_like(x)
+    rows, stride = n // row, stride & _U32
+    if x.device.type == "cpu":
+        c = (np.uint32(key) + np.arange(rows, dtype=np.uint32)[:, None, None]
+             * np.uint32(stride) + np.arange(period, dtype=np.uint32))
+        h = _splitmix32(c, lambda a, k: np.multiply(a, np.uint32(k), out=a))
+        bits = torch.from_numpy((h >> 8).astype(np.float32))
+    else:
+        ar = lambda k: torch.arange(k, device=x.device)  # noqa: E731
+        bits = (hash_u32(key + ar(rows)[:, None, None] * stride + ar(period)) >> 8).float()
+    mask = bits * (1.0 / (1 << 24)) < keep
+    x3 = x.reshape(rows, row // period, period)
+    return torch.where(mask, x3 / keep, torch.zeros_like(x3)).reshape(x.shape)
+
+
+# a launch's elements: the kernel indexes in 32 bits
+_LAUNCH_ELEMENTS = 2 ** 31 - 1
+
+
+def _dropout_cuda(x: Tensor, keep: float, key: int, row: int, stride: int,
+                  period: int) -> Tensor:
+    """``dropout_ref`` by ``csrc/dropout.cu``: one launch (a launch per
+    ``_LAUNCH_ELEMENTS // row`` rows beyond 2³¹ elements)."""
+    if x.device.type != "cuda" or not x.is_contiguous():
+        raise ValueError("dropout: want a contiguous CUDA tensor")
+    y = torch.empty_like(x)
+    n = x.numel()
+    if n == 0:
+        return y
+    if not 0 < period <= row <= _LAUNCH_ELEMENTS or row % period or n % row:
+        raise ValueError(f"dropout: rows of {row} elements in periods of {period} "
+                         f"do not tile {tuple(x.shape)}")
+    lib = kernels.library("dropout")
+    code = 2 if x.dtype == torch.float64 else kernels.dtype_code(x.dtype)
+    item = x.element_size()
+    rows = _LAUNCH_ELEMENTS // row
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for r0 in range(0, n // row, rows):
+            xp, yp = x.data_ptr() + r0 * row * item, y.data_ptr() + r0 * row * item
+            status = lib.mdvit_dropout(
+                code, xp, yp, min(rows, n // row - r0) * row, (key + r0 * stride) & _U32,
+                row, stride & _U32, period, keep, int(xp % 16 == 0 and yp % 16 == 0), stream)
+            kernels.check_status("dropout", status)
+    kernels.LAUNCHES["dropout"] += 1
+    return y
+
+
+@torch.library.custom_op("mdvit::dropout", mutates_args=(), device_types="cuda")
+def _dropout_op(x: Tensor, keep: float, key: int, row: int, stride: int,
+                period: int) -> Tensor:
+    return _dropout_cuda(x, keep, key, row, stride, period)
+
+
+_dropout_op.register_kernel("cpu", dropout_ref)
+
+
+@_dropout_op.register_fake
+def _dropout_fake(x, keep, key, row, stride, period):
+    return torch.empty_like(x)
+
+
+def _dropout_setup(ctx, inputs, output):
+    ctx.layout = inputs[1:]
+
+
+def _dropout_grad(ctx, g):
+    # where's backward, then the divide's: the same mask and scale on g
+    return (torch.ops.mdvit.dropout(g.contiguous(), *ctx.layout),) + (None,) * 5
+
+
+_dropout_op.register_autograd(_dropout_grad, setup_context=_dropout_setup)
 
 
 def _dropped(x: torch.Tensor, rate: float, shape, gen, rows: int | None = None
              ) -> torch.Tensor:
     """``x`` with a Bernoulli(1 − rate) mask of ``shape`` (broadcast to x)
     applied and the kept values scaled by 1 / (1 − rate)."""
-    keep = 1.0 - rate
     with span("mdvit.dropout"):
-        mask = _keep_mask(keep, shape, gen, x, rows)
-        return torch.where(mask, x / keep, torch.zeros_like(x))
+        layout = _counter_layout(x.shape, shape, gen, rows)
+        return torch.ops.mdvit.dropout(x.contiguous(), 1.0 - rate, *layout)
 
 
 def drop_path(x: torch.Tensor, rate: float, train: bool, gen) -> torch.Tensor:

@@ -6,21 +6,26 @@ machine without JAX::
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_gpu.py -q
 """
+import math
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
 
 import torch_cp
 from mdvit_tpu_torch.device import no_tf32
-from mdvit_tpu_torch.ops import dwconv, kernels
+from mdvit_tpu_torch.ops import dwconv, kernels, layers
 from mdvit_tpu_torch.ops import factorized_attention as fa
-from mdvit_tpu_torch.ops.layers import dropout2d, drop_path, fast_dropout
+from mdvit_tpu_torch.ops.layers import dropout2d, drop_path, fast_dropout, hash_u32
+from mdvit_tpu_torch.parallel.mesh import RowShard, Shard, row_sharded, sharded
 
 torch.set_num_threads(2)
 
 STAGE_C_CH = [(64, 8), (128, 16), (320, 40), (512, 64)]
 FORWARD = ("factorized_attention", "cpe_conv", "crpe_conv")
 BACKWARD = ("factorized_attention_bwd", "cpe_conv_bwd", "crpe_conv_bwd")
+OPS = FORWARD + BACKWARD + ("dropout",)
 
 
 def _counts(names):
@@ -120,9 +125,8 @@ def test_attention_every_width_matches_plain_on_card(dtype):
 @pytest.mark.gpu
 def test_model_forward_on_card_goes_through_the_kernels():
     """A small full-width MDViT on the card: one launch of each kernel per
-    serial block, and the same logits as through the plain versions."""
-    from unittest import mock
-
+    serial block, no backward and no dropout launch, and the same logits as
+    through the plain versions."""
     from mdvit_tpu_torch.models.registry import build_mdvit
 
     _need_card()
@@ -136,7 +140,7 @@ def test_model_forward_on_card_goes_through_the_kernels():
         got = model(x, oh)["seg"][0]
     torch.cuda.synchronize()
     assert _counts(FORWARD) == {"factorized_attention": 8, "cpe_conv": 8, "crpe_conv": 8}
-    assert _counts(BACKWARD) == {n: 0 for n in BACKWARD}
+    assert _counts(BACKWARD + ("dropout",)) == {n: 0 for n in BACKWARD + ("dropout",)}
     with mock.patch.object(fa, "factorized_attention", fa.factorized_attention_ref), \
             mock.patch.object(dwconv, "cpe_conv", dwconv.cpe_conv_ref), \
             mock.patch.object(dwconv, "crpe_conv", dwconv.crpe_conv_ref), \
@@ -492,6 +496,169 @@ def test_dropout_masks_equal_on_card_and_cpu():
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2 ** -22, atol=0)
 
 
+def row_block_counters(shape, row0: int, ctx, axis: int, device="cpu") -> torch.Tensor:
+    """The counters of a rank's block of a tensor row-sharded along ``axis``
+    in ``"e2e"`` mode, written out: the unsharded tensor's, sample row0 + b,
+    the axis's global index (the rank's first row or token, from the row
+    split) + a, the other axes as they are."""
+    b, a = shape[0], shape[axis]
+    pre, post = math.prod(shape[1:axis]), math.prod(shape[axis + 1:])
+    split = ctx.split(a, tokens=len(shape) - axis != 3)
+    start = sum(split[:ctx.index])
+    ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)  # noqa: E731
+    outer = (row0 + ar(b))[:, None] * pre + ar(pre)[None, :]
+    idx = (outer * (sum(split) * post))[:, :, None, None] \
+        + ((start + ar(a)) * post)[None, None, :, None] + ar(post)[None, None, None, :]
+    return idx.reshape(shape)
+
+
+def mask_shape_of(kind: str, shape) -> tuple:
+    """The mask of an element dropout, DropPath (a draw a sample) or
+    Dropout2d (a draw a sample and channel) of x of ``shape``."""
+    shape = tuple(shape)
+    return {"element": shape, "sample": shape[:1] + (1,) * (len(shape) - 1),
+            "channel": shape[:1] + (1,) * (len(shape) - 2) + shape[-1:]}[kind]
+
+
+def dropout_call(kind: str, x, rate: float, axis):
+    if kind == "element":
+        return fast_dropout(x, rate, True, None, row_axis=axis or 1)
+    return (drop_path if kind == "sample" else dropout2d)(x, rate, True, None)
+
+
+def drawn_counters(kind: str, shape, seed: int, row0: int, ctx, axis,
+                   device="cpu") -> torch.Tensor:
+    """The counters, the seed's hash base added (mod 2³²), at which the port
+    drew a dropout's mask before ``mdvit::dropout``: the mask's row-major
+    ones from the shard's first (the seed folded with the shard index in
+    ``"stage"`` mode), or the unsharded tensor's in ``"e2e"`` mode."""
+    mask_shape = mask_shape_of(kind, shape)
+    if ctx is not None and ctx.mode == "e2e" and kind == "element":
+        counters = row_block_counters(shape, row0, ctx, axis, device)
+    else:
+        if ctx is not None and kind == "element":
+            seed ^= (ctx.index * 0x9E3779B9) & 0xFFFFFFFF
+        counters = row0 * math.prod(mask_shape[1:]) + torch.arange(
+            math.prod(mask_shape), device=device).reshape(mask_shape)
+    return (counters + (((seed & 0xFFFFFFFF) * 0x9E3779B9) & 0xFFFFFFFF)) & 0xFFFFFFFF
+
+
+def formula_mask(kind: str, shape, seed: int, keep: float, row0: int, ctx, axis,
+                 device="cpu") -> torch.Tensor:
+    """The mask as the port drew it before ``mdvit::dropout``: the uniforms
+    of ``fast_uniform`` (``hash_u32`` of the drawn counters) below keep."""
+    counters = drawn_counters(kind, shape, seed, row0, ctx, axis, device)
+    return (hash_u32(counters) >> 8).float() * (1.0 / (1 << 24)) < keep
+
+
+def _same_bits(got: torch.Tensor, want: torch.Tensor) -> None:
+    """Equal bit for bit, NaN in the same places (a NaN's payload aside)."""
+    nan = want.isnan()
+    assert got.dtype == want.dtype and torch.equal(got.isnan(), nan)
+    ints = {torch.float64: torch.int64, torch.float32: torch.int32,
+            torch.bfloat16: torch.int16}[got.dtype]
+    assert torch.equal(got[~nan].view(ints), want[~nan].view(ints))
+
+
+# (mask, x's shape, row0, (mode, rank, ranks, rows) of the row shard, the
+# row-sharded axis): the three masks, a data-parallel rank's rows, both
+# context modes at grid rows (unequal blocks), tokens and UTNet's attention
+# probabilities (axis 2); odd sizes leave a tail past the last 16-byte vector
+DROPOUT_CARD_LAYOUTS = [
+    ("element", (4, 16, 16, 64), 0, None, 1),
+    ("element", (4, 16, 16, 64), 3, None, 1),
+    ("sample", (4, 16, 16, 64), 3, None, None),
+    ("channel", (4, 16, 16, 64), 3, None, None),
+    ("element", (3, 5, 7, 9), 2, None, 1),
+    ("channel", (3, 5, 7, 9), 2, None, None),
+    ("element", (4, 64, 40), 1, ("stage", 1, 2, ()), 1),
+    ("element", (4, 6, 8, 64), 1, ("e2e", 1, 2, (2, 1)), 1),
+    ("element", (4, 48, 40), 2, ("e2e", 1, 2, ()), 1),
+    ("element", (2, 4, 48, 33), 1, ("e2e", 1, 3, ()), 2),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.1, 0.25])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("case", DROPOUT_CARD_LAYOUTS,
+                         ids=lambda c: f"{c[0]}-{'x'.join(map(str, c[1]))}-r{c[2]}-"
+                                       f"{c[3][0] + str(c[4]) if c[3] else 'whole'}")
+def test_dropout_kernel_bit_equal_to_formula_on_card(case, dtype, rate):
+    """Each dropout through ``mdvit::dropout``'s kernel against the torch
+    formula it replaced, ``where(mask, x / keep, 0)`` with the mask hashed
+    at the old counters, on the card: the output and the gradient (where's
+    backward, then the divide's) bit for bit, from a 16-byte aligned x, from
+    one that is not (the kernel's one-element path), and with a launch cut
+    to two rows (the launches a tensor of 2³¹ elements or more takes); the
+    op's plain version on the card too. fp64 (the context-parallel fp64
+    reference steps) scales by the fp64 reciprocal."""
+    _need_card()
+    kind, shape, row0, ctx, axis = case
+    shard = RowShard(None, ctx[1], ctx[2], ctx[0], ctx[3]) if ctx else None
+    seed, keep = 0x9D2C5680, 1.0 - rate
+    gen = torch.Generator().manual_seed(sum(shape))
+    n = math.prod(shape)
+    buf = torch.randn(2 * n + 1, generator=gen).to("cuda", dtype)
+    g = torch.randn(shape, generator=gen).to("cuda", dtype)
+    mask = formula_mask(kind, shape, seed, keep, row0, shard, axis, "cuda")
+    with mock.patch.object(layers, "draw_seed", lambda _: seed), \
+            sharded(Shard(None, row0, None)), row_sharded(shard):
+        layout = layers._counter_layout(shape, mask_shape_of(kind, shape), None,
+                                        axis if kind == "element" else None)
+    row = layout[1]
+    assert n // row > 2
+    for x, launch in ((buf[:n], layers._LAUNCH_ELEMENTS), (buf[n + 1:], layers._LAUNCH_ELEMENTS),
+                      (buf[:n], 2 * row + 1)):
+        x = x.view(shape).detach().requires_grad_()
+        kernels.reset_launches()
+        with mock.patch.object(layers, "draw_seed", lambda _: seed), \
+                mock.patch.object(layers, "_LAUNCH_ELEMENTS", launch), \
+                sharded(Shard(None, row0, None)), row_sharded(shard):
+            y = dropout_call(kind, x, rate, axis)
+            (gx,) = torch.autograd.grad(y, x, g)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["dropout"] == 2
+        xw = x.detach().requires_grad_()
+        want = torch.where(mask, xw / keep, torch.zeros_like(xw))
+        (gw,) = torch.autograd.grad(want, xw, g)
+        _same_bits(y, want)
+        _same_bits(gx, gw)
+        _same_bits(layers.dropout_ref(x.detach(), keep, *layout), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_kernel_keep_edge_and_non_finite_on_card(dtype):
+    """2²⁶ elements at rate 0.1: the draws whose uniform equals float(keep)
+    (hash >> 8 = 15,099,494, dropped by the fp32 compare) occur and match
+    the formula; NaN and inf in x give 0 where dropped, and NaN and inf
+    where kept, forward and backward."""
+    _need_card()
+    seed, keep, shape = 0x5EED0001, 1.0 - 0.1, (64, 1024, 1024)
+    edge = hash_u32(torch.arange(math.prod(shape), device="cuda")
+                    + ((seed * 0x9E3779B9) & 0xFFFFFFFF)) >> 8
+    assert int((edge == 15099494).sum()) > 0
+    del edge
+    mask = formula_mask("element", shape, seed, keep, 0, None, 1, "cuda")
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(7)).to("cuda", dtype)
+    x.view(-1)[::1000] = float("nan")
+    x.view(-1)[1::1000] = float("inf")
+    x.view(-1)[2::1000] = -float("inf")
+    g = x.flip(0).clone()
+    x.requires_grad_()
+    with mock.patch.object(layers, "draw_seed", lambda _: seed):
+        y = fast_dropout(x, 0.1, True, None)
+    (gx,) = torch.autograd.grad(y, x, g)
+    xw = x.detach().requires_grad_()
+    want = torch.where(mask, xw / keep, torch.zeros_like(xw))
+    (gw,) = torch.autograd.grad(want, xw, g)
+    _same_bits(y, want)
+    _same_bits(gx, gw)
+    assert not y[~mask].any() and not gx[~mask].any()
+    assert y[mask].isnan().any() and y[mask].isinf().any()
+
+
 # augmentation, card against CPU, images before normalisation (as
 # chip_smoke.py holds it): only where the noise's floor moved a level
 AUG_FLOOR_SHARE = 1e-3
@@ -555,7 +722,8 @@ def test_trainer_debug_run_on_card_launches_all_kernels(tmp_path):
 
 def _op_inputs(name: str, c: int, ch: int, dtype) -> tuple:
     """A stage's op arguments (B=2, 16×16 grid): q, k, v slices of one
-    projection, leaves needing grad for the forward ops."""
+    projection, leaves needing grad for the forward ops; dropout's x and
+    counter layout."""
     gen = torch.Generator().manual_seed(c)
     bwd = name.endswith("_bwd")
 
@@ -564,6 +732,9 @@ def _op_inputs(name: str, c: int, ch: int, dtype) -> tuple:
         return a.requires_grad_(grad and not bwd)
 
     kind = name.removesuffix("_bwd")
+    if kind == "dropout":  # an element mask of (2, 16, 16, C)
+        row = 16 * 16 * c
+        return (t(2, 16, 16, c, grad=True), 0.9, 0x2545F491, row, row, row)
     if kind == "factorized_attention":
         qkv = t(2, 256, 3 * c, grad=True)
         args = (qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:])
@@ -579,7 +750,7 @@ def _op_inputs(name: str, c: int, ch: int, dtype) -> tuple:
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("name", FORWARD + BACKWARD)
+@pytest.mark.parametrize("name", OPS)
 def test_opcheck_on_card(name, dtype):
     """``torch.library.opcheck`` of each op on CUDA tensors at stage 2's
     width (C = 320, ch = 40): schema, fake against the kernel, autograd
@@ -653,9 +824,10 @@ def test_train_step_repeats_its_bits_on_card(dtype):
 def test_zoo_step_repeats_its_bits_on_card(name, img):
     """Two steps of a comparator at its full widths (its own dropout, no
     augmentation) from one state give the same losses, gradients,
-    parameters and BN stats, bit for bit, and launch none of the kernels:
-    the max-pools', ``table[index]``'s and the transposed conv's backwards
-    take deterministic paths under ``device.deterministic``."""
+    parameters and BN stats, bit for bit, and launch none of MDViT's
+    kernels (their dropout's aside): the max-pools', ``table[index]``'s and
+    the transposed conv's backwards take deterministic paths under
+    ``device.deterministic``."""
     from mdvit_tpu_torch.models.registry import build_model
     from mdvit_tpu_torch.train.optim import build_optimizer
     from mdvit_tpu_torch.train.steps import make_train_step
@@ -678,7 +850,7 @@ def test_zoo_step_repeats_its_bits_on_card(name, img):
     assert all(torch.equal(v, m2[k]) for k, v in m1.items())
     assert all(torch.equal(a, b) for a, b in zip(g1, g2))
     assert all(torch.equal(v, s2[k]) for k, v in s1.items())
-    assert not any(kernels.LAUNCHES.values())
+    assert not any(_counts(FORWARD + BACKWARD).values())
 
 
 @pytest.mark.gpu
@@ -705,7 +877,7 @@ def test_resize_backward_repeats_its_bits_on_card(src, dst, c):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", FORWARD + BACKWARD)
+@pytest.mark.parametrize("name", OPS)
 def test_ops_on_no_rows_launch_nothing_on_card(name):
     """A batch of 0 rows (a data-parallel rank's empty domain group): each op
     returns its empty outputs (zero weight gradients) without a launch."""

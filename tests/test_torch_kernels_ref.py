@@ -26,6 +26,7 @@ from mdvit_tpu_torch.device import no_tf32
 from mdvit_tpu_torch.models.blocks import ConvRelPosEnc
 from mdvit_tpu_torch.ops import dwconv, kernels
 from mdvit_tpu_torch.ops import factorized_attention as fa
+from mdvit_tpu_torch.ops.layers import fast_dropout
 from tests.test_torch_kernels_gpu import ATTN_FWD_CHUNK_ROWS, attn_bucket
 from tests.test_torch_train_kernels import CHUNKED_CASES
 
@@ -209,6 +210,7 @@ def test_cpu_tensors_count_no_launch():
     dwconv.cpe_conv(g, torch.zeros(3, 3, 64), torch.zeros(64))
     dwconv.crpe_conv(g, v.unflatten(1, (4, 4)), torch.zeros(7, 7, 64),
                      torch.zeros(64))
+    fast_dropout(g, 0.1, True, torch.Generator().manual_seed(0))
     assert kernels.LAUNCHES == {name: 0 for name in kernels.LAUNCHES}
 
 

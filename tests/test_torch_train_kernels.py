@@ -12,11 +12,15 @@
   mode are too slow here (``tests/test_pallas_attention.py``); the twins are
   held equal to them by the JAX package's own tests.
 * Train-mode ``DomainBatchNorm`` against the flax module.
-* ``fast_uniform``/``hash_u32`` bit-equal to the JAX package's.
+* ``fast_uniform``/``hash_u32`` bit-equal to the JAX package's; the
+  dropout op's counter layouts and its autograd.
 * AdamW + staircase StepLR against ``optax.adamw(steplr_schedule(...))``.
 
 fp32 on both sides, JAX at ``highest`` precision, inputs from seeded numpy.
 """
+import math
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,14 +34,16 @@ from mdvit_tpu.ops.norm import DomainBatchNorm as JaxBN
 from mdvit_tpu.ops.pallas_attention import factorized_attention_xla
 from mdvit_tpu.ops.pallas_dwconv import cpe_conv_xla, crpe_conv_xla
 from mdvit_tpu.train.optim import steplr_schedule
-from mdvit_tpu_torch.ops import dwconv, kernels
+from mdvit_tpu_torch.ops import dwconv, kernels, layers
 from mdvit_tpu_torch.ops import factorized_attention as fa
 from mdvit_tpu_torch.ops.layers import (draw_seed, dropout2d, drop_path, fast_dropout,
                                          fast_uniform, hash_u32)
 from mdvit_tpu_torch.ops.norm import DomainBatchNorm
+from mdvit_tpu_torch.parallel.mesh import RowShard, Shard, row_sharded, sharded
 from mdvit_tpu_torch.train.optim import build_optimizer
 from tests.test_torch_kernels_gpu import (ATTN_BUCKETS, ATTN_CHUNK_ROWS,
-                                          ATTN_FWD_CHUNK_ROWS, attn_bucket)
+                                          ATTN_FWD_CHUNK_ROWS, attn_bucket, drawn_counters,
+                                          dropout_call, formula_mask, mask_shape_of)
 
 torch.set_num_threads(2)
 
@@ -232,7 +238,7 @@ def test_no_grad_calls_skip_the_function():
     kernels.reset_launches()
     assert set(kernels.LAUNCHES) == {
         "factorized_attention", "cpe_conv", "crpe_conv",
-        "factorized_attention_bwd", "cpe_conv_bwd", "crpe_conv_bwd"}
+        "factorized_attention_bwd", "cpe_conv_bwd", "crpe_conv_bwd", "dropout"}
 
 
 def _bn_vars(rs, c):
@@ -303,6 +309,60 @@ def test_dropout_masks_are_hashed_counters(fn, mask_shape):
     mask = (fast_uniform(seed, mask_shape) < keep).expand_as(x)
     got = fn(x, 0.3, True, torch.Generator().manual_seed(3))
     assert torch.equal(got, torch.where(mask, x / keep, torch.zeros_like(x)))
+
+
+# (mask, x's shape, row0, (mode, rank, ranks, rows) of the row shard, the
+# row-sharded axis): the per-sample and per-channel broadcasts, a
+# data-parallel rank's rows, both context modes, grid rows (unequal blocks),
+# tokens and UTNet's attention probabilities (axis 2)
+DROPOUT_LAYOUTS = [
+    ("element", (2, 3, 4, 8), 0, None, 1),
+    ("element", (2, 3, 4, 8), 3, None, 1),
+    ("sample", (2, 3, 4, 8), 3, None, None),
+    ("channel", (2, 3, 4, 8), 3, None, None),
+    ("element", (2, 12, 8), 1, ("stage", 1, 2, ()), 1),
+    ("element", (2, 3, 4, 8), 1, ("e2e", 1, 2, (2, 1)), 1),
+    ("element", (2, 4, 4, 8), 0, ("e2e", 0, 2, (2, 1)), 1),
+    ("element", (2, 12, 8), 2, ("e2e", 1, 2, ()), 1),
+    ("element", (2, 3, 12, 5), 1, ("e2e", 1, 3, ()), 2),
+]
+
+
+@pytest.mark.parametrize("kind,shape,row0,ctx,axis", DROPOUT_LAYOUTS,
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_dropout_op_layout_gives_the_counters(kind, shape, row0, ctx, axis):
+    """``mdvit::dropout``'s integers (key, row, stride, period) give every
+    element of x the counter its mask was drawn at before the op
+    (``drawn_counters``: the shard's first counter + row-major ones of
+    element, per-sample and per-channel masks, the seed folded with the
+    shard index in ``"stage"`` mode, the unsharded tensor's in ``"e2e"``
+    mode); the public dropouts are the op at those integers, and its output
+    is the formula's."""
+    seed, rate = 0xC0FFEE42, 0.4
+    keep = 1.0 - rate
+    shard = RowShard(None, ctx[1], ctx[2], ctx[0], ctx[3]) if ctx else None
+    with mock.patch.object(layers, "draw_seed", lambda gen: seed), \
+            sharded(Shard(None, row0, None)), row_sharded(shard):
+        key, row, stride, period = layers._counter_layout(
+            shape, mask_shape_of(kind, shape), None, axis if kind == "element" else None)
+        got = dropout_call(kind, torch.ones(shape), rate, axis)
+    e = torch.arange(math.prod(shape))
+    counters = (key + e // row * stride + e % row % period) & 0xFFFFFFFF
+    want = drawn_counters(kind, shape, seed, row0, shard, axis)
+    assert torch.equal(counters.reshape(shape), want.expand(shape))
+    out = torch.ops.mdvit.dropout(torch.ones(shape), keep, key, row, stride, period)
+    mask = formula_mask(kind, shape, seed, keep, row0, shard, axis)
+    assert torch.equal(out, torch.where(mask, 1.0 / keep, 0.0).expand(shape))
+    assert torch.equal(got, out)
+
+
+def test_dropout_op_gradcheck():
+    """The op's registered autograd (the same op on the gradient) against
+    finite differences in fp64, at an element and a per-channel layout."""
+    x = torch.randn(2, 3, 4, dtype=torch.float64, requires_grad=True)
+    for layout in ((0x1234, 12, 12, 12), (0x1234, 12, 4, 4)):
+        assert torch.autograd.gradcheck(
+            lambda t: torch.ops.mdvit.dropout(t, 0.7, *layout), (x,))
 
 
 def test_adamw_steplr_matches_optax():
