@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from torch import Tensor
 
 from mdvit_tpu_torch.ops import kernels
+from mdvit_tpu_torch.parallel.mesh import collective, counted
 
 # the widest head the kernels take: any ch from 1 to MAX_CH that divides C
 # runs (MDViT's 8, 16, 40, 64 in instances of their own, every other ch in
@@ -531,11 +532,13 @@ def pad_partials(ws: Tensor, chunks: int, ch: int, grad: bool) -> Tensor:
 def gather_partials(ws: Tensor, group: Any, chunks: int, ch: int, grad: bool) -> Tensor:
     """(BH, S·P) → (BH, n·chunks·P): every rank's partials of each (b, h), in
     rank order, each rank's padded to ``chunks`` (the most any rank holds)
-    with empty partials (one all-gather over ``group``)."""
-    ws = pad_partials(ws, chunks, ch, grad)
-    parts = [torch.empty_like(ws) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, ws.contiguous(), group=group)
-    return torch.stack(parts, dim=1).reshape(ws.shape[0], -1)
+    with empty partials (one all-gather over ``group``, in the span
+    ``mdvit.cp.gather``)."""
+    with collective("gather"):
+        ws = counted("gather", pad_partials(ws, chunks, ch, grad).contiguous())
+        parts = [torch.empty_like(ws) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, ws, group=group)
+        return torch.stack(parts, dim=1).reshape(ws.shape[0], -1)
 
 
 def _most_chunks(tokens, ch: int, grad: bool) -> int:

@@ -82,9 +82,11 @@ import torch.distributed as dist
 
 from mdvit_tpu_torch.device import deterministic, no_tf32
 from mdvit_tpu_torch.models.base import split_seg
-from mdvit_tpu_torch.parallel.mesh import (RowShard, Shard, all_reduce_sum, gather_rows,
-                                           row_sharded, row_split, sharded)
+from mdvit_tpu_torch.parallel.mesh import (RowShard, Shard, all_reduce, all_reduce_sum,
+                                           collective, gather_rows, row_sharded, row_split,
+                                           sharded)
 from mdvit_tpu_torch.train.losses import seg_loss_from_sums, seg_loss_sums
+from mdvit_tpu_torch.utils.spans import span
 
 # total stem + patch-embed downsampling to the deepest (bridge) grid of
 # BASE and MDViT: the stem /4, three strided embeds /2 each
@@ -310,7 +312,12 @@ def make_context_parallel_train_step(model, optimizer, group: Any):
     scaled by the grid's size: the sums' backward adds the ranks' identical
     upstream gradients) and divided by its size; then ``optimizer.step()``.
     The BatchNorms' running stats take the grid's moments, the same on every
-    rank. Returns the loss, the same on every rank. A model whose
+    rank. Returns the loss, the same on every rank. While a profiler records,
+    the step is the span ``mdvit.train_step`` around ``mdvit.forward`` (the
+    model call and the loss's sums), ``mdvit.backward`` (the pull) and
+    ``mdvit.optimizer`` (the gradient all-reduce, the gradients set, the
+    optimizer's step), as the single-card step's; each collective inside is
+    a ``mdvit.cp.*`` span (``parallel/mesh.py``). A model whose
     ``context_parallel_step_gap`` names a reason (TransFuse) is refused."""
     mesh = _as_mesh(group)
     _check_model(model)
@@ -325,21 +332,25 @@ def make_context_parallel_train_step(model, optimizer, group: Any):
     def step(x: torch.Tensor, y: torch.Tensor, onehot: torch.Tensor,
              gen: torch.Generator | None = None) -> torch.Tensor:
         _check_min_grid(model, x.shape, mesh)
-        with _e2e(model, mesh, x.shape) as (row0, per, rows):
-            out = model(_local(x, rows, row0, per), onehot[row0:row0 + per], train=True,
-                        gen=gen)
-            logits = split_seg(out["seg"])[0]
-            sums = seg_loss_sums(logits, _local(y, rows, row0, per))
-            loss = seg_loss_from_sums(all_reduce_sum(sums, mesh.grid if size > 1 else None))
-        grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
-        if size > 1:
-            flat = torch.cat([g.reshape(-1) for g in grads])
-            dist.all_reduce(flat, group=mesh.grid)
-            grads = [part.view_as(g) for part, g in
-                     zip(flat.div_(size).split([g.numel() for g in grads]), grads)]
-        for p, g in zip(params, grads):
-            p.grad = g
-        optimizer.step()
-        return loss.detach()
+        with span("mdvit.train_step"):
+            with _e2e(model, mesh, x.shape) as (row0, per, rows), span("mdvit.forward"):
+                out = model(_local(x, rows, row0, per), onehot[row0:row0 + per], train=True,
+                            gen=gen)
+                logits = split_seg(out["seg"])[0]
+                sums = seg_loss_sums(logits, _local(y, rows, row0, per))
+                loss = seg_loss_from_sums(all_reduce_sum(sums, mesh.grid if size > 1 else None))
+            with span("mdvit.backward"):
+                grads = torch.autograd.grad(loss, params, allow_unused=True,
+                                            materialize_grads=True)
+            with span("mdvit.optimizer"):
+                if size > 1:
+                    with collective("reduce"):
+                        flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), mesh.grid)
+                        grads = [part.view_as(g) for part, g in
+                                 zip(flat.div_(size).split([g.numel() for g in grads]), grads)]
+                for p, g in zip(params, grads):
+                    p.grad = g
+                optimizer.step()
+            return loss.detach()
 
     return step

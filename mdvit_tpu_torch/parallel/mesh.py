@@ -31,6 +31,15 @@ for a use that differs by rank, its backward a sum over the ranks),
 wrapping from the last row to the first) and ``spatial_moments``
 (InstanceNorm's). The ranks' blocks may differ in height (``row_split``,
 ``RowShard.split``): the gathers pad every block to the largest and trim.
+
+Each collective of the row shards, of A's and A′'s workspace gather
+(``ops/factorized_attention.gather_partials``), of the batch's sums
+(``all_reduce_sum``) and of the context-parallel step's gradients is issued
+in one span of its kind (``utils.spans``), with the copies that feed and
+unpack it, forward and backward: ``mdvit.cp.halo`` (``_HaloRows``, ``_HaloFromGrid``),
+``mdvit.cp.gather`` (the row and workspace all-gathers, ``_FromFirst``'s
+broadcast) and ``mdvit.cp.reduce`` (every all-reduce). ``COLLECTIVES``
+counts the calls of each kind and the bytes this rank passes to them.
 """
 from __future__ import annotations
 
@@ -41,6 +50,42 @@ from typing import Any, Iterator, NamedTuple, Sequence
 
 import torch
 import torch.distributed as dist
+
+from mdvit_tpu_torch.utils.spans import span
+
+# calls and bytes passed by this rank, by kind; each kind's span is
+# ``mdvit.cp.<kind>``
+COLLECTIVES = {kind: {"calls": 0, "bytes": 0} for kind in ("halo", "gather", "reduce")}
+
+
+def reset_collectives() -> None:
+    for count in COLLECTIVES.values():
+        count.update(calls=0, bytes=0)
+
+
+_SPANS = {kind: f"mdvit.cp.{kind}" for kind in COLLECTIVES}
+
+
+def collective(kind: str):
+    """The span ``mdvit.cp.<kind>`` of one collective: its call and the
+    copies that feed and unpack it are issued inside."""
+    return span(_SPANS[kind])
+
+
+def counted(kind: str, payload: torch.Tensor) -> torch.Tensor:
+    """Count one collective call of ``kind`` to which this rank passes
+    ``payload``; returns ``payload``."""
+    count = COLLECTIVES[kind]
+    count["calls"] += 1
+    count["bytes"] += payload.numel() * payload.element_size()
+    return payload
+
+
+def all_reduce(t: torch.Tensor, group: Any, kind: str = "reduce") -> torch.Tensor:
+    """``t`` summed in place over ``group``'s ranks (counted; the caller
+    issues it in its kind's span)."""
+    dist.all_reduce(counted(kind, t), group=group)
+    return t
 
 
 def mesh_size(world: int, cap: int, total_batch: int) -> int:
@@ -133,15 +178,13 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t: torch.Tensor, group: Any) -> torch.Tensor:
         ctx.group = group
-        out = t.clone()
-        dist.all_reduce(out, group=group)
-        return out
+        with collective("reduce"):
+            return all_reduce(t.clone(), group)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        g = g.clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+        with collective("reduce"):
+            return all_reduce(g.clone(), ctx.group), None
 
 
 def all_reduce_sum(t: torch.Tensor, group: Any) -> torch.Tensor:
@@ -353,14 +396,17 @@ def current_context() -> RowShard | None:
 # ---------------------------------------------------------------- row shards
 
 
-def _gather(t: torch.Tensor, group: Any) -> list[torch.Tensor]:
+def _gather(t: torch.Tensor, group: Any, kind: str = "gather") -> list[torch.Tensor]:
+    """Every rank's ``t``: one all-gather of ``kind`` (counted; the caller
+    issues it in its kind's span)."""
+    t = counted(kind, t.contiguous())
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, t.contiguous(), group=group)
+    dist.all_gather(parts, t, group=group)
     return parts
 
 
-def _gather_blocks(t: torch.Tensor, group: Any, sizes: Sequence[int], dim: int = 1
-                   ) -> list[torch.Tensor]:
+def _gather_blocks(t: torch.Tensor, group: Any, sizes: Sequence[int], dim: int = 1,
+                   kind: str = "gather") -> list[torch.Tensor]:
     """Every rank's block of ``t`` along ``dim``, ``sizes`` long in rank
     order: padded to the largest, gathered, trimmed."""
     most = max(sizes)
@@ -368,7 +414,7 @@ def _gather_blocks(t: torch.Tensor, group: Any, sizes: Sequence[int], dim: int =
         pad = list(t.shape)
         pad[dim] = most - t.shape[dim]
         t = torch.cat([t, t.new_zeros(pad)], dim=dim)
-    return [p.narrow(dim, 0, s) for p, s in zip(_gather(t, group), sizes)]
+    return [p.narrow(dim, 0, s) for p, s in zip(_gather(t, group, kind), sizes)]
 
 
 class _HaloRows(torch.autograd.Function):
@@ -380,22 +426,24 @@ class _HaloRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, halo, group, index, size):
         ctx.halo, ctx.group, ctx.index, ctx.size = halo, group, index, size
-        edges = _gather(torch.stack([x[:, :halo], x[:, -halo:]]), group)
-        zeros = torch.zeros_like(x[:, :halo])
-        above = edges[index - 1][1] if index > 0 else zeros
-        below = edges[index + 1][0] if index < size - 1 else zeros
-        return torch.cat([above, x, below], dim=1)
+        with collective("halo"):
+            edges = _gather(torch.stack([x[:, :halo], x[:, -halo:]]), group, "halo")
+            zeros = torch.zeros_like(x[:, :halo])
+            above = edges[index - 1][1] if index > 0 else zeros
+            below = edges[index + 1][0] if index < size - 1 else zeros
+            return torch.cat([above, x, below], dim=1)
 
     @staticmethod
     def backward(ctx, g):
         h, i, n = ctx.halo, ctx.index, ctx.size
-        edges = _gather(torch.stack([g[:, :h], g[:, -h:]]), ctx.group)
-        dx = g[:, h:-h].clone()
-        if i < n - 1:  # the next rank's rows above it are my last rows
-            dx[:, -h:] += edges[i + 1][0]
-        if i > 0:      # the previous rank's rows below it are my first rows
-            dx[:, :h] += edges[i - 1][1]
-        return dx, None, None, None, None
+        with collective("halo"):
+            edges = _gather(torch.stack([g[:, :h], g[:, -h:]]), ctx.group, "halo")
+            dx = g[:, h:-h].clone()
+            if i < n - 1:  # the next rank's rows above it are my last rows
+                dx[:, -h:] += edges[i + 1][0]
+            if i > 0:      # the previous rank's rows below it are my first rows
+                dx[:, :h] += edges[i - 1][1]
+            return dx, None, None, None, None
 
 
 def halo_exchange_rows(x: torch.Tensor, halo: int, group: Any) -> torch.Tensor:
@@ -421,19 +469,21 @@ class _HaloFromGrid(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, halo, group, index, sizes):
         ctx.halo, ctx.group, ctx.index, ctx.sizes = halo, group, index, sizes
-        grid = torch.cat(_gather_blocks(x, group, sizes), dim=1)
-        padded = torch.nn.functional.pad(grid, (0, 0, 0, 0, halo, halo))
         r0 = sum(sizes[:index])
-        return padded[:, r0:r0 + x.shape[1] + 2 * halo].contiguous()
+        with collective("halo"):
+            grid = torch.cat(_gather_blocks(x, group, sizes, kind="halo"), dim=1)
+            padded = torch.nn.functional.pad(grid, (0, 0, 0, 0, halo, halo))
+            return padded[:, r0:r0 + x.shape[1] + 2 * halo].contiguous()
 
     @staticmethod
     def backward(ctx, g):
         h, sizes = ctx.halo, ctx.sizes
         r0, rows = sum(sizes[:ctx.index]), sizes[ctx.index]
-        full = g.new_zeros((g.shape[0], sum(sizes) + 2 * h) + tuple(g.shape[2:]))
-        full[:, r0:r0 + rows + 2 * h] = g
-        dist.all_reduce(full, group=ctx.group)
-        return full[:, h + r0:h + r0 + rows], None, None, None, None
+        with collective("halo"):
+            full = g.new_zeros((g.shape[0], sum(sizes) + 2 * h) + tuple(g.shape[2:]))
+            full[:, r0:r0 + rows + 2 * h] = g
+            all_reduce(full, ctx.group, "halo")
+            return full[:, h + r0:h + r0 + rows], None, None, None, None
 
 
 def halo_rows(x: torch.Tensor, halo: int, ctx: RowShard) -> torch.Tensor:
@@ -458,7 +508,8 @@ class _GatherRows(torch.autograd.Function):
     def forward(ctx, x, group, dim, sizes):
         ctx.index, ctx.rows, ctx.dim = dist.get_rank(group), x.shape[dim], dim
         ctx.start = sum(sizes[:ctx.index])
-        return torch.cat(_gather_blocks(x, group, sizes, dim), dim=dim)
+        with collective("gather"):
+            return torch.cat(_gather_blocks(x, group, sizes, dim), dim=dim)
 
     @staticmethod
     def backward(ctx, g):
@@ -488,12 +539,13 @@ class _GatherShared(torch.autograd.Function):
     def forward(ctx, x, group, dim, sizes, index):
         ctx.group, ctx.dim, ctx.rows = group, dim, x.shape[dim]
         ctx.start = sum(sizes[:index])
-        return torch.cat(_gather_blocks(x, group, sizes, dim), dim=dim)
+        with collective("gather"):
+            return torch.cat(_gather_blocks(x, group, sizes, dim), dim=dim)
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g, group=ctx.group)
+        with collective("reduce"):
+            g = all_reduce(g.clone(memory_format=torch.contiguous_format), ctx.group)
         return g.narrow(ctx.dim, ctx.start, ctx.rows), None, None, None, None
 
 
@@ -531,10 +583,12 @@ class _CyclicFromNeighbours(torch.autograd.Function):
         up, down = max(ups), max(downs)
         h = x.shape[1]
         ctx.group, ctx.index, ctx.size, ctx.ups, ctx.downs = group, index, size, ups, downs
-        edges = _gather(torch.cat([x.narrow(1, h - up, up), x.narrow(1, 0, down)], 1), group)
-        before, after = edges[(index - 1) % size], edges[(index + 1) % size]
-        return torch.cat([before.narrow(1, up - ups[index], ups[index]), x,
-                          after.narrow(1, up, downs[index])], 1)
+        with collective("gather"):
+            edges = _gather(torch.cat([x.narrow(1, h - up, up), x.narrow(1, 0, down)], 1),
+                            group)
+            before, after = edges[(index - 1) % size], edges[(index + 1) % size]
+            return torch.cat([before.narrow(1, up - ups[index], ups[index]), x,
+                              after.narrow(1, up, downs[index])], 1)
 
     @staticmethod
     def backward(ctx, g):
@@ -542,14 +596,16 @@ class _CyclicFromNeighbours(torch.autograd.Function):
         up, down, u, d = max(ctx.ups), max(ctx.downs), ctx.ups[ctx.index], ctx.downs[ctx.index]
         h = g.shape[1] - u - d
         shape = (g.shape[0],) + tuple(g.shape[2:])
-        above = torch.cat([g.new_zeros((shape[0], up - u) + shape[1:]), g.narrow(1, 0, u)], 1)
-        below = torch.cat([g.narrow(1, u + h, d), g.new_zeros((shape[0], down - d) + shape[1:])],
-                          1)
-        edges = _gather(torch.cat([above, below], 1), ctx.group)
-        dx = g.narrow(1, u, h).clone()
-        dx[:, h - up:] += edges[(i + 1) % n].narrow(1, 0, up)   # my last rows, lent up
-        dx[:, :down] += edges[(i - 1) % n].narrow(1, up, down)  # my first rows, lent down
-        return dx, None, None, None, None, None
+        with collective("gather"):
+            above = torch.cat([g.new_zeros((shape[0], up - u) + shape[1:]), g.narrow(1, 0, u)],
+                              1)
+            below = torch.cat([g.narrow(1, u + h, d),
+                               g.new_zeros((shape[0], down - d) + shape[1:])], 1)
+            edges = _gather(torch.cat([above, below], 1), ctx.group)
+            dx = g.narrow(1, u, h).clone()
+            dx[:, h - up:] += edges[(i + 1) % n].narrow(1, 0, up)   # my last rows, lent up
+            dx[:, :down] += edges[(i - 1) % n].narrow(1, up, down)  # my first rows, lent down
+            return dx, None, None, None, None, None
 
 
 def cyclic_rows(x: torch.Tensor, ranges: Sequence[tuple[int, int]], ctx: RowShard
@@ -613,15 +669,16 @@ class _FromFirst(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: torch.Tensor, group: Any, index: int) -> torch.Tensor:
         ctx.group, ctx.index = group, index
-        out = x.clone(memory_format=torch.contiguous_format)
-        dist.broadcast(out, dist.get_global_rank(group, 0), group=group)
-        return out
+        with collective("gather"):
+            out = counted("gather", x.clone(memory_format=torch.contiguous_format))
+            dist.broadcast(out, dist.get_global_rank(group, 0), group=group)
+            return out
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g, group=ctx.group)
-        return (g if ctx.index == 0 else torch.zeros_like(g)), None, None
+        with collective("reduce"):
+            g = all_reduce(g.clone(memory_format=torch.contiguous_format), ctx.group)
+            return (g if ctx.index == 0 else torch.zeros_like(g)), None, None
 
 
 def from_first(x: torch.Tensor) -> torch.Tensor:

@@ -11,8 +11,10 @@ benchmark's traced windows carry them as they are.
 
 The spans, each entered where its work is issued:
 
-- ``mdvit.train_step``: one step of ``train.steps.make_train_step``; the
-  four train spans below nest in it;
+- ``mdvit.train_step``: one step of ``train.steps.make_train_step`` or of
+  ``parallel.context.make_context_parallel_train_step``; the four train
+  spans below nest in it (the context-parallel step has no ``mdvit.data``:
+  its caller passes the batch);
 - ``mdvit.data``: ``gather_batch`` and the augmentation (or the eval
   transform);
 - ``mdvit.forward``: the model call (the checkpoint wrapper under
@@ -23,7 +25,14 @@ The spans, each entered where its work is issued:
   ``optimizer.step()`` and ``scheduler.step()``;
 - ``mdvit.dropout`` (``ops.layers``): a dropout, DropPath or Dropout2d that
   draws a mask: its hashing, compare and apply;
-- ``mdvit.serve``: one call of ``predict.make_forward``'s forward.
+- ``mdvit.serve``: one call of ``predict.make_forward``'s forward;
+- ``mdvit.cp.halo``, ``mdvit.cp.gather``, ``mdvit.cp.reduce``
+  (``parallel.mesh``, ``ops.factorized_attention.gather_partials``): one
+  collective of context or data parallelism each, with the copies that
+  feed and unpack it: a halo exchange; a gather of rows, of A's or A′'s workspace, or a
+  broadcast; an all-reduce (the BatchNorms' moments, the losses' and
+  spatial means' sums, the context-parallel step's gradients), forward
+  and backward.
 """
 from __future__ import annotations
 

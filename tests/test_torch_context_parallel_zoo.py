@@ -13,9 +13,9 @@ loss (the loss and BN stats at ``torch_family.LOSS_TOL``, the ranks'
 summed gradients ÷ 2 by ``check_gradients``). SwinUnet with window 3 at 96²
 splits the deepest grid 2 : 1 and its 24-row grid 16 : 8, off the windows.
 UTNet's probability and projection dropout (0.1) against the port's
-unsharded train-mode forward and step: the masks are the unsharded rows.
-UTNet's data seed is one where its step gradient does not sit on a kink
-(the sensitivity test says which).
+unsharded train-mode forward and step, both in fp64: the masks are the
+unsharded rows. UTNet's data seed is one where its step gradient does not
+sit on a kink within fp32 rounding's reach (the sensitivity test says which).
 The row-shard pieces the comparators add, on blocks of 6, 4 and 4 rows in
 3 ranks, against the same functions of the whole grid. The refusals are in
 ``test_torch_context_parallel_e2e.py::test_other_models_raise``."""
@@ -117,7 +117,7 @@ def zoo(tmp_path_factory):
                       "x": torch.from_numpy(x), "y": torch.from_numpy(y),
                       "dom": torch.from_numpy(dom), "train": step}
     drop = dict(cases["UTNet"], model=dict(cases["UTNet"]["model"], attn_drop=DROP,
-                                           proj_drop=DROP), train_forward=True)
+                                           proj_drop=DROP), train_forward=True, fp64=True)
     cases["UTNet_dropout"] = drop
     spec = tmp / "spec.pt"
     torch.save({"cases": cases}, spec)
@@ -164,9 +164,14 @@ def test_utnet_dropout_masks_are_the_unsharded_rows(zoo):
     """UTNet with attention-probability and projection dropout 0.1: the
     train-mode forward and one CP step against the port's unsharded ones
     from the same generator seeds (the probabilities' tokens on axis 2 hash
-    the unsharded tensor's counters): maps within 1e-5·max(1, max|ref|),
-    the loss and BN stats at ``LOSS_TOL``, gradients by ``check_gradients``.
-    The same step without dropout differs (the masks act)."""
+    the unsharded tensor's counters), both in fp64 (``torch_cp.fp64``: in
+    fp32 the ranks' other order of the same sums moves this step's gradient
+    past ``check_gradients`` on some CPUs, ``inc0.bn1.weight`` by 4e-4 of a
+    largest 0.062, where the sensitivity test finds a kink within 1e-7 of
+    the input): maps within 1e-5·max(1, max|ref|), the loss and BN stats at
+    ``LOSS_TOL``, gradients by ``check_gradients`` and within
+    ``torch_cp.FP64_L2_TOL`` relative L2. The same step without dropout
+    differs (the masks act)."""
     jax_side, cases, res = zoo
     spec = cases["UTNet_dropout"]
     ref = {**torch_cp.forwards(spec, None), **torch_cp.train_step(spec, None)}
@@ -180,30 +185,36 @@ def test_utnet_dropout_masks_are_the_unsharded_rows(zoo):
             np.testing.assert_allclose(got["stats"][name].numpy(), a.numpy(), err_msg=name,
                                        **LOSS_TOL)
         check_gradients(ref, got["grads"])
+        assert torch_cp.rel_l2(got["grads"], ref["grads"]) <= torch_cp.FP64_L2_TOL
         assert abs(float(got["loss"]) - float(r["UTNet"]["loss"])) > 1e-4
 
 
 @pytest.mark.parametrize("seed,low,high", [(13, 1e-3, 1.0), (14, 0.0, 1e-4)])
 def test_utnet_step_sensitivity_at_the_data_seeds(seed, low, high):
     """Why UTNet's cases take data seed 14: the port's unsharded step
-    gradients (relative L2) move by more than 1e-3 at seed 13 when the input
-    moves by 1e-7 (ReLU and max-pool decisions on the edge: past
-    ``check_gradients``' reach for any two fp32 orders of the same sums),
-    and by less than 1e-4 at seed 14."""
+    gradient has a kink (a ReLU or max-pool decision on the edge) within
+    1e-7 of the input at seed 13, and none at seed 14. Measured in fp64
+    (``torch_cp.fp64``), where rounding is far below the move, so the
+    reading does not depend on the CPU's vector width: the second
+    difference g(x + εn) + g(x − εn) − 2·g(x), ε = 1e-7, relative L2, is
+    above 1e-3 at seed 13 (a jump: within fp32 rounding's reach, past
+    ``check_gradients``' for two fp32 orders of the same sums) and below
+    1e-4 at seed 14 (smooth: O(ε²))."""
     make, name, kw, img, _, _ = CASES["UTNet"]
     model = make()
     x, y, dom = _data(img, seed)
     variables = random_variables(model, jnp.zeros((2, img, img, 3)), jnp.asarray(dom),
                                  call_kw={"train": False})
     case = {"model": dict(name=name, **kw), "y": torch.from_numpy(y),
-            "dom": torch.from_numpy(dom),
+            "dom": torch.from_numpy(dom), "fp64": True,
             "state_dict": from_jax_variables({"batch_stats": {}, **variables},
                                              build_model(name, device="cpu", **kw))}
-    noise = np.random.RandomState(0).standard_normal(x.shape).astype(np.float32)
-    grads = [torch_cp.train_step(dict(case, x=torch.from_numpy(xi)), None)["grads"]
-             for xi in (x, x + 1e-7 * noise)]
-    num = sum(float(((grads[1][n] - g) ** 2).sum()) for n, g in grads[0].items())
-    shift = (num / sum(float((g ** 2).sum()) for g in grads[0].values())) ** 0.5
+    x64 = x.astype(np.float64)
+    move = 1e-7 * np.random.RandomState(0).standard_normal(x.shape)
+    g0, up, down = (torch_cp.train_step(dict(case, x=torch.from_numpy(xi)), None)["grads"]
+                    for xi in (x64, x64 + move, x64 - move))
+    # ‖(up + down − g0) − g0‖ / ‖g0‖
+    shift = torch_cp.rel_l2({n: up[n] + down[n] - g for n, g in g0.items()}, g0)
     assert low < shift < high, shift
 
 

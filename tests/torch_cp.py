@@ -3,8 +3,13 @@
 
 Imports only torch and the port, so the ranks that ``torch_dp.spawn`` starts
 never import JAX. Each worker reads its inputs from a ``torch.save``d spec
-and writes what it computed to ``<out>/rank<r>.pt``.
+and writes what it computed to ``<out>/rank<r>.pt``. A spec with ``"fp64"``
+runs in fp64 (``fp64``): the ranks against one process then differ by fp64
+rounding alone, where fp32's other orders of the same sums can move a value
+near a kink (ReLU, max pool) or a logit near zero past a tolerance, by
+amounts that depend on the CPU's vector width.
 """
+import contextlib
 from unittest import mock
 
 import torch
@@ -18,6 +23,7 @@ from mdvit_tpu_torch.models.mpvit import MPViT
 from mdvit_tpu_torch.models.registry import build_model
 from mdvit_tpu_torch.ops import factorized_attention as fa
 from mdvit_tpu_torch.ops import layers
+from mdvit_tpu_torch.ops import resize as resize_module
 from mdvit_tpu_torch.ops.layers import Conv2d
 from mdvit_tpu_torch.ops.resize import (local_size, resize_ac_whole, resize_bilinear,
                                         resize_bilinear_align_corners)
@@ -31,6 +37,34 @@ from mdvit_tpu_torch.parallel.mesh import (RowShard, cyclic_rows, from_first,
                                            halo_exchange_rows, halo_rows, row_sharded,
                                            row_split, spatial_mean, spatial_moments)
 from torch_dp import save
+
+
+# the ranks' fp64 results against one process's, relative L2 (chip_smoke.py's
+# CP_FP64_GRAD_TOL): fp64 rounding through the step reaches ~1e-13
+FP64_L2_TOL = 1e-9
+
+
+@contextlib.contextmanager
+def fp64():
+    """Every default dtype, fp32 cast (``Tensor.float``: the norms', the
+    moments', the losses') and resize constant in fp64 (``chip_smoke.py``'s
+    ``_step_grads_fp64``)."""
+    constant = resize_module.device_constant
+    default = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        with mock.patch.object(torch.Tensor, "float", lambda t: t.to(torch.float64)), \
+                mock.patch.object(resize_module, "device_constant",
+                                  lambda *a: constant(*a).double()):
+            yield
+    finally:
+        torch.set_default_dtype(default)
+
+
+def rel_l2(got: dict, want: dict) -> float:
+    """‖got − want‖ / ‖want‖ over every tensor of two dicts of one set of names."""
+    num = sum(float((got[n].double() - w.double()).square().sum()) for n, w in want.items())
+    return (num / sum(float(w.double().square().sum()) for w in want.values())) ** 0.5
 
 
 def padded_workspace(blocks, tokens, ch: int, grad: bool, where: str) -> torch.Tensor:
@@ -97,7 +131,22 @@ def stage_worker(rank: int, spec_path: str, out_dir: str) -> None:
 def _model(spec: dict, **over) -> torch.nn.Module:
     model = build_model(**{**spec["model"], **over}, device="cpu")
     model.load_state_dict(spec["state_dict"])
+    if spec.get("fp64"):
+        model.double()
+        for m in model.modules():
+            for attr in ("compute_dtype", "dtype"):  # the dtypes a module casts to
+                if isinstance(getattr(m, attr, None), torch.dtype):
+                    setattr(m, attr, torch.float64)
     return model
+
+
+def _inputs(spec: dict, *keys: str) -> list:
+    """The spec's tensors ``keys``, in fp64 for an fp64 spec."""
+    return [spec[k].double() if spec.get("fp64") else spec[k] for k in keys]
+
+
+def _precision(spec: dict):
+    return fp64() if spec.get("fp64") else contextlib.nullcontext()
 
 
 def _mesh(spec: dict):
@@ -112,7 +161,8 @@ def e2e_worker(rank: int, spec_path: str, out_dir: str) -> None:
     (the model's dropout, generator seed 7); with ``spec["train"]``, one CP
     train step (``train_step``); with ``spec["train_no_drop"]``, one more
     from the same state with dropout and stochastic depth off (under
-    ``"no_drop"``)."""
+    ``"no_drop"``); with ``spec["fp64_too"]``, the eval and train-mode
+    forwards and the train step once more in fp64 (under ``"fp64"``)."""
     spec = torch.load(spec_path, weights_only=False)
     mesh = _mesh(spec)
     res = forwards(spec, mesh)
@@ -120,16 +170,24 @@ def e2e_worker(rank: int, spec_path: str, out_dir: str) -> None:
         res.update(train_step(spec, mesh))
     if spec.get("train_no_drop"):
         res["no_drop"] = train_step(spec, mesh, drop_rate=0.0, drop_path_rate=0.0)
+    if spec.get("fp64_too"):
+        res["fp64"] = fp64_forward_and_step(spec, mesh)
     save(rank, out_dir, res)
+
+
+def fp64_forward_and_step(spec: dict, mesh) -> dict:
+    """``forwards`` with the train-mode forward and ``train_step``, in fp64."""
+    spec = dict(spec, fp64=True, train_forward=True)
+    return {**forwards(spec, mesh), **train_step(spec, mesh)}
 
 
 def forwards(spec: dict, mesh) -> dict:
     """The eval forward's ``seg`` and ``feat`` and, with
     ``spec["train_forward"]``, the train-mode ``seg``; ``mesh`` None is the
     unsharded model."""
-    x, dom, kw = spec["x"], spec["dom"], spec.get("kwargs", {})
+    (x, dom), kw = _inputs(spec, "x", "dom"), spec.get("kwargs", {})
     model = _model(spec).eval()
-    with torch.no_grad():
+    with torch.no_grad(), _precision(spec):
         out = model_apply_context_parallel(model, x, dom, mesh, train=False, out_feat=True,
                                            **kw)
         res = {"seg": out["seg"], "feat": out["feat"]}
@@ -147,7 +205,8 @@ def train_step(spec: dict, mesh, **over) -> dict:
     model = _model(spec, **over).train()
     opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=0.05)
     step = make_context_parallel_train_step(model, opt, mesh)
-    loss = step(spec["x"], spec["y"], spec["dom"], torch.Generator().manual_seed(9))
+    with _precision(spec):
+        loss = step(*_inputs(spec, "x", "y", "dom"), torch.Generator().manual_seed(9))
     return {"loss": loss, "grads": {n: p.grad.clone() for n, p in model.named_parameters()},
             "stats": {n: b.clone() for n, b in model.named_buffers() if "running" in n}}
 
@@ -323,4 +382,55 @@ def ragged_blocks_worker(rank: int, spec_path: str, out_dir: str) -> None:
         (dx,) = torch.autograd.grad((out * cot[name]).sum(), x[height])
         res[name] = out.detach()
         res[f"d_{name}"] = dx
+    save(rank, out_dir, res)
+
+
+def spans_worker(rank: int, spec_path: str, out_dir: str) -> None:
+    """The context-parallel step of ``spec["cfg"]``'s BASE over the group of
+    all ranks on the global batch that ``spec["indices"]`` selects from
+    ``spec["stores"]``, gathered and augmented as the benchmark's ranks do,
+    twice from ``spec["state"]``: once with no profiler (counting the port's
+    ``record_function`` entries) and once under ``torch.profiler`` (its
+    spans and collectives, their threads and times). Each: the loss, the
+    gradients, the parameters after the step and ``COLLECTIVES``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mdvit_tpu_torch.data.augment import augment_batch
+    from mdvit_tpu_torch.data.loader import gather_batch
+    from mdvit_tpu_torch.parallel import mesh as mesh_module
+    from mdvit_tpu_torch.utils import spans
+    from portbench import system
+
+    spec = torch.load(spec_path, weights_only=False)
+    cfg, seed = spec["cfg"], spec["seed"]
+    o = cfg["optimizer"]
+    mesh = make_context_mesh()
+    res = {}
+    for mode in ("plain", "profiled"):
+        model = system.build(cfg, "cpu")
+        model.load_state_dict(spec["state"])
+        opt = torch.optim.AdamW(model.parameters(), lr=o["lr"], betas=tuple(o["betas"]),
+                                eps=o["eps"], weight_decay=o["weight_decay"])
+        step = make_context_parallel_train_step(model, opt, mesh)
+        x, m, onehot = gather_batch(*spec["stores"], spec["indices"])
+        x, y = augment_batch(torch.Generator().manual_seed(seed), x, m)
+        gen = torch.Generator().manual_seed(seed)
+        mesh_module.reset_collectives()
+        entered = []
+        if mode == "plain":
+            with mock.patch.object(spans, "record_function",
+                                   lambda name: entered.append(name)):
+                loss = step(x, y, onehot, gen)
+            out = {"entered": entered}
+        else:
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                loss = step(x, y, onehot, gen)
+            out = {"events": [(e.name, e.thread, e.time_range.start, e.time_range.end)
+                              for e in prof.events() if e.device_type == DeviceType.CPU
+                              and (e.name.startswith("mdvit.") or e.name.startswith("c10d::"))]}
+        res[mode] = {**out, "loss": loss,
+                     "grads": {n: p.grad.clone() for n, p in model.named_parameters()},
+                     "params": {n: p.detach().clone() for n, p in model.named_parameters()},
+                     "collectives": {k: dict(v) for k, v in mesh_module.COLLECTIVES.items()}}
     save(rank, out_dir, res)
